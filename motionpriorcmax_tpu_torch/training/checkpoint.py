@@ -1,0 +1,156 @@
+"""RAFT-Spline weights: the flax <-> torch key map and checkpoint loading
+(JAX: training/checkpoint.py:134-295).
+
+The port's modules carry the canonical RAFT / E-RAFT state-dict names
+(conv1/norm1/layer{1-3}/conv2 encoders; encoder.convc*/gru.conv*/flow_head/
+mask update block) under the top-level names fnet_ev / fnet_img / cnet /
+update_block.  `raft_spline_torch_key` maps a flax parameter path onto that
+name; `flax_raft_spline_to_torch` turns JAX variables into the port's
+state_dict; `load_raft_spline_weights` loads a reference Lightning
+checkpoint.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+_ENC_LAYER = {f"layer{l}.{j}": f"ResidualBlock_{2 * (l - 1) + j}"
+              for l in (1, 2, 3) for j in (0, 1)}
+_ENC_CONV = {"conv1": "Conv_0", "conv2": "Conv_1"}
+_BLOCK_CONV = {"conv1": "Conv_0", "conv2": "Conv_1", "downsample.0": "Conv_2"}
+_BLOCK_NORM = {"norm1": "BatchNorm_0", "norm2": "BatchNorm_1",
+               "norm3": "BatchNorm_2"}
+_UPD_CONV = {
+    "encoder.convc1": ("BasicMotionEncoder_0", "Conv_0"),
+    "encoder.convc2": ("BasicMotionEncoder_0", "Conv_1"),
+    "encoder.convf1": ("BasicMotionEncoder_0", "Conv_2"),
+    "encoder.convf2": ("BasicMotionEncoder_0", "Conv_3"),
+    "encoder.conv": ("BasicMotionEncoder_0", "Conv_4"),
+    "gru.convz1": ("SepConvGRU_0", "Conv_0"),
+    "gru.convr1": ("SepConvGRU_0", "Conv_1"),
+    "gru.convq1": ("SepConvGRU_0", "Conv_2"),
+    "gru.convz2": ("SepConvGRU_0", "Conv_3"),
+    "gru.convr2": ("SepConvGRU_0", "Conv_4"),
+    "gru.convq2": ("SepConvGRU_0", "Conv_5"),
+    "flow_head.conv1": ("DeltaHead_0", "Conv_0"),
+    "flow_head.conv2": ("DeltaHead_0", "Conv_1"),
+    "mask.0": ("Conv_0",),
+    "mask.2": ("Conv_1",),
+}
+_SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "mean": "running_mean", "var": "running_var"}
+
+
+def raft_spline_torch_key(path: Tuple[str, ...], leaf: str) -> Optional[str]:
+    """flax param path -> torch state-dict key (None = no torch analog, e.g.
+    the non-affine instance norms)."""
+    top = path[0]
+    suffix = _SUFFIX[leaf]
+    if top == "basis_mlp":
+        # LEARNED curves: BasisMLP's Dense_i -> basis_mlp.layers.i
+        return f"basis_mlp.layers.{int(path[1].split('_')[1])}.{suffix}"
+    if top not in ("fnet_ev", "fnet_img", "cnet", "update_block"):
+        return None
+    if top == "update_block":
+        for torch_mid, flax_mid in _UPD_CONV.items():
+            if tuple(path[1:]) == flax_mid:
+                return f"update_block.{torch_mid}.{suffix}"
+        return None
+    rest = path[1:]
+    if len(rest) == 1:
+        name = rest[0]
+        for torch_name, flax_name in _ENC_CONV.items():
+            if name == flax_name:
+                return f"{top}.{torch_name}.{suffix}"
+        if name == "BatchNorm_0":
+            return f"{top}.norm1.{suffix}"
+        return None
+    block, name = rest[0], rest[1]
+    for torch_blk, flax_blk in _ENC_LAYER.items():
+        if block == flax_blk:
+            for table in (_BLOCK_CONV, _BLOCK_NORM):
+                for torch_name, flax_name in table.items():
+                    if name == flax_name:
+                        return f"{top}.{torch_blk}.{torch_name}.{suffix}"
+    return None
+
+
+def _torch_key_aliases(torch_key: str) -> Tuple[str, ...]:
+    """The third residual-block norm is registered both as `norm3` and as
+    `downsample.1`, so a checkpoint carries it under either or both names."""
+    if ".norm3." in torch_key:
+        return (torch_key, torch_key.replace(".norm3.", ".downsample.1."))
+    return (torch_key,)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), val
+
+
+def flax_raft_spline_to_torch(variables: Mapping[str, Any]
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX RAFTSpline variables ({'params', 'batch_stats'} of arrays) -> the
+    port's state_dict, for `RAFTSpline.load_state_dict(strict=True)`.
+
+    Conv kernels go HWIO -> OIHW, Dense kernels [in, out] -> [out, in];
+    `norm3` is written under both of its names; instance norms (no
+    parameters) are skipped; every batch norm gets a `num_batches_tracked`
+    of 0 (flax keeps no such counter).
+    """
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for coll in ("params", "batch_stats"):
+        for path, val in _flatten(variables.get(coll) or {}):
+            key = raft_spline_torch_key(path[:-1], path[-1])
+            if key is None:
+                continue
+            arr = np.array(val, dtype=np.float32)
+            if path[-1] == "kernel":
+                arr = (np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4
+                       else arr.T)
+            for k in _torch_key_aliases(key):
+                sd[k] = torch.from_numpy(np.ascontiguousarray(arr))
+                if k.endswith(".running_mean"):
+                    sd[k[:-len("running_mean")] + "num_batches_tracked"] = (
+                        torch.zeros((), dtype=torch.long))
+    return sd
+
+
+def extract_model_weights(ckpt_path: str, prefix: str = "model."
+                          ) -> Dict[str, torch.Tensor]:
+    """Lightning .ckpt / .pth -> {key without prefix: tensor}; a bare
+    state_dict (no 'state_dict' wrapper) works too."""
+    blob = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    state_dict = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v.detach()
+            for k, v in state_dict.items()}
+
+
+def load_raft_spline_weights(model: torch.nn.Module,
+                             state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Load a canonical RAFT-named state_dict into `model`, strictly.
+
+    Fills the second name of each `norm3` / `downsample.1` pair from the
+    first, and a missing `num_batches_tracked` with 0; any other missing or
+    unexpected key raises (load_state_dict strict=True).
+    """
+    sd = dict(state_dict)
+    for key in model.state_dict():
+        if key in sd:
+            continue
+        for alt in (key.replace(".downsample.1.", ".norm3."),
+                    key.replace(".norm3.", ".downsample.1.")):
+            if alt != key and alt in sd:
+                sd[key] = sd[alt]
+                break
+        else:
+            if key.endswith("num_batches_tracked"):
+                sd[key] = torch.zeros((), dtype=torch.long)
+    model.load_state_dict(sd, strict=True)
