@@ -6,28 +6,51 @@
 Phases, one or more lines each; any failure exits non-zero:
   1. environment: card name and count, nvidia-smi name and power limit, and
      the process's TF32 flags, left at torch's defaults as the CLI leaves
-     them (the model's forward turns both off for compute_dtype float32)
-  2. build: the corr-window kernel from motionpriorcmax_tpu_torch/csrc with
-     nvcc for sm_90a, and nvcc's -Xptxas -v report
+     them (the models' forwards turn both off for compute_dtype float32)
+  2. build: every kernel source in motionpriorcmax_tpu_torch/csrc, one nvcc
+     per source, all started together, for sm_90a, with the -Xptxas -v
+     register report
+  traj-val (RAFT-Spline Tab2L5 serving, EVIMO2 geometry):
   3. kernel vs plain: the corr-window kernel against its plain PyTorch
      version at the four pyramid-level shapes of the EVIMO2 batch-8 path,
      f32 and bf16 volumes, with coordinates outside the maps
   4. timing (CUDA events, L2 flushed between launches): kernel, its memory
      bound, the plain version, and F.grid_sample (align_corners=True, zero
      padding; the reference's own sampler, never called by the port)
-  5. serving: RAFT-Spline Tab2L5 at full width with seeded random weights,
-     raft_validation_step on 1 warm-up + 3 synthetic B=8 384x512 requests:
-     latency, samples/s, peak memory, kernel launches per request (48),
-     finite metrics, and both TF32 flags off inside every forward
+  5. serving: raft_validation_step with seeded random weights on 1 warm-up
+     + 3 synthetic B=8 384x512 requests: latency, samples/s, peak memory,
+     kernel launches per request (48), finite metrics, TF32 off inside
+     every forward
   6. where the time goes: CUDA events around the model's parts over 3 more
-     requests with the batch on the card (feature encoder, corr volume and
-     pyramid, context encoder, the 12 lookups, the 12 update blocks, the
-     rest), then torch.profiler over one request: kernel time and the
-     card's idle share
+     requests, then torch.profiler over one request (idle share)
   7. card vs CPU: the same weights and inputs through the port on the CPU
      (plain lookup) and on the card (kernel) at the small test geometry
+  flow-train (self-supervised DSEC flow training, config/flow_training/
+  dsec.yaml: 480x640, 15 bins, batch 14, bf16 UNet, capacity 2^20):
+  8. host batch: 14 synthetic samples of ~1M events from a numpy seed,
+     voxelized on the host and collated by the port (polarity packing,
+     LUT-cell sort, cell_ends); the collate time of one batch
+  9. kernels vs plain at the path's shapes: the IWE vote forward and
+     backward (B=14, M=2^19 per polarity half, 480x640) on cell-sorted
+     events (kernel row 3) and on the same events unsorted (row 4), the LUT
+     gather (LUT [14, 1800, 160, 2], 2^20 events) and its sorted segment
+     sum (S=2); 5% of the warped coordinates far outside the image
+ 10. timing of each kernel (CUDA events, L2 flushed): kernel, bytes bound
+     at 3.35 TB/s, plain version, and one PyTorch call as the yardstick
+     (index_put_ accumulate for the vote, advanced indexing for the
+     gather, index_add_ for the segment sum; none for the vote backward)
+ 11. training: train_flow (the CLI's loop) at full width with seeded
+     weights on 1 warm-up + 3 timed steps and one val pass with GT flow,
+     checkpoint to a temporary directory: step ms, events/s, peak memory,
+     kernel launches per step (2 + 2 vote, 1 + 1 gather), finite loss that
+     changes, finite val EPE
+ 12. where the time goes: CUDA events around UNet forward, trajectories,
+     KNN + interpolation, warp, vote + blur + objective, backward and
+     AdamW over 3 steps, then torch.profiler over one step (idle share)
+ 13. card vs CPU: one f32 train_step at the test geometry, kernels on the
+     card against plain versions on the CPU: loss, gradients, BN statistics
 
-The line before the last is a JSON object with the kernel's numbers; the
+The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -35,6 +58,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -57,15 +81,19 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+def nvidia_smi_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_env(torch):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = nvidia_smi_line()
     print(f"[env] device={name!r} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda} process tf32 flags (torch defaults, as "
           f"the CLI leaves them): matmul="
@@ -76,15 +104,22 @@ def phase_env(torch):
 
 
 def phase_build():
-    from motionpriorcmax_tpu_torch.ops.cuda.build import build_library
+    """Build every csrc/*.cu at once (one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from motionpriorcmax_tpu_torch.ops.cuda.build import CSRC_DIR, build_library
+
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    path, log = build_library("corr_window")
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s "
-          "(nvcc -gencode arch=compute_90a,code=sm_90a)")
-    for line in log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            print(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build_library, names))
+    print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f} s "
+          "(nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
+    for path, log in built:
+        print(f"[build] {path.name}")
+        for line in log.splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+                print(f"[build]   {line.strip()}")
 
 
 def level_inputs(torch, t, h2, w2, lvl, seed, dtype):
@@ -411,12 +446,532 @@ def phase_card_vs_cpu(torch):
         fail("card and CPU forwards disagree")
 
 
+# ---------------------------------------------------------------------------
+# flow-train: self-supervised DSEC flow training
+# ---------------------------------------------------------------------------
+
+# config/flow_training/dsec.yaml as a dict: the GPU machine has no yaml
+# (tests/test_torch_flow_train.py checks that the two agree).
+DSEC_CONFIG = {
+    "common": {"height": 480, "width": 640, "num_bins": 15,
+               "polarity_aware_batching": True, "patch_size": 4},
+    "model": {"lr": 0.0001, "model_type": "default", "num_basis": 1,
+              "basis_type": "polynomial", "compute_dtype": "bfloat16"},
+    "loss": {"loss_name": "FOCUS", "num_tref": 1, "num_knn": 32,
+             "smooth_weight": 0.003, "lut_superpixel_size": 4,
+             "focus_loss_norm": "l1", "dist_norm": "l2",
+             "scale_iwe_by_dt": True, "mask_image_border": True,
+             "interpolation_scheme": "mean",
+             "smooth_type": "on_flow_to_tref"},
+    "data": {"dataset": "DSEC", "data_path": "data/dsec/train",
+             "num_workers": 16, "batch_size": 14, "norm_type": "mean_std",
+             "quantile": 0},
+    "trainer": {"max_epochs": 100},
+}
+FLOW_CAPACITY = 1 << 20            # the CLI's --event-capacity default
+FLOW_EVENTS = 1_000_000            # events per synthetic 100 ms window
+FLOW_STEPS = 4                     # 1 warm-up + 3 timed
+# Kernel vs plain on the card: the vote adds a pixel's votes with atomics
+# in run-dependent order (a few ulps of the pixel's sum); its backward and
+# the segment sum use the same f32 sums as their plain versions up to
+# fused multiply-adds and summation order; the gather is a selection.
+TOL_VOTE_FWD = 1e-5                # relative to the image's largest value
+TOL_VOTE_BWD = 1e-5                # relative to the largest cotangent
+TOL_SEGSUM = 1e-5                  # relative to the largest cell sum
+TOL_TRAIN_LOSS = 1e-4              # card vs CPU, relative
+TOL_TRAIN_GRAD = 1e-4              # card vs CPU, of each tensor's largest
+TOL_TRAIN_BN = 1e-4                # card vs CPU, of each buffer's largest
+
+
+def flow_configs(tree, **model_overrides):
+    from motionpriorcmax_tpu_torch.cli.main import flow_configs as build
+    from motionpriorcmax_tpu_torch.config import propagate_config
+
+    tree = propagate_config(copy.deepcopy(tree))
+    tree["model"].update(model_overrides)
+    return build(tree)
+
+
+def flow_samples(seed, n_samples, n_events, h, w, nb, gt=False):
+    """DSEC-like samples from a numpy seed: rectified (float) pixel
+    coordinates, sorted normalized times, random polarity, host voxel
+    grids; with `gt` a GT flow and validity mask."""
+    from motionpriorcmax_tpu_torch.data.host_ops import voxelize_normalized_host
+
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(0, 1, nb + 1)
+    samples = []
+    for _ in range(n_samples):
+        t = np.sort(rng.random(n_events))
+        ev = np.stack([rng.random(n_events) * (h - 1),
+                       rng.random(n_events) * (w - 1), t,
+                       rng.integers(0, 2, n_events),
+                       np.clip(np.searchsorted(edges, t) - 1, 0, None)],
+                      -1).astype(np.float32)
+        s = {"pos_events": ev[ev[:, 3] == 1], "neg_events": ev[ev[:, 3] == 0],
+             "voxel": voxelize_normalized_host(ev, nb, h, w)}
+        if gt:
+            s["forward_flow"] = (3 * rng.standard_normal((2, h, w))
+                                 ).astype(np.float32)
+            s["flow_valid"] = rng.random((h, w)) < 0.7
+        samples.append(s)
+    return samples
+
+
+def phase_flow_batch(cfg, loss_cfg, batch_size):
+    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+
+    h, w = cfg.image_shape
+    t0 = time.perf_counter()
+    samples = flow_samples(7, batch_size, FLOW_EVENTS, h, w, cfg.num_bins,
+                           gt=True)
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = collate_fixed_capacity(
+        samples, FLOW_CAPACITY, polarity_aware=True,
+        lut_cell_sort_params=(loss_cfg.image_shape, loss_cfg.num_bins,
+                              loss_cfg.lut_superpixel_size))
+    t_collate = time.perf_counter() - t0
+    valid = int(batch["events"][..., 5].sum())
+    print(f"[flow-batch] {batch_size} samples x {FLOW_EVENTS} events, "
+          f"{h}x{w}, {cfg.num_bins} bins: events + host voxelization "
+          f"{t_make:.2f} s (one thread); collate of one batch (pad to "
+          f"{FLOW_CAPACITY}, polarity packing, LUT-cell sort, cell_ends) "
+          f"{t_collate:.2f} s; {valid} valid events of "
+          f"{batch['events'].shape[0] * batch['events'].shape[1]}")
+    train = {k: v for k, v in batch.items()
+             if k not in ("forward_flow", "flow_valid")}
+    return train, batch
+
+
+def vote_inputs(torch, events, npos, seed):
+    """Warped coordinates and weights of one polarity half, the layout
+    make_iwes votes: (y, x) plus a smooth flow, 5% of them far outside."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y, x = events[..., 0], events[..., 1]
+    coords = torch.stack([y + 8 * torch.sin(x / 50), x + 6 * torch.cos(y / 40)],
+                         dim=-1)
+    far = torch.rand(coords.shape[:2], device="cuda", generator=g) < 0.05
+    sign = torch.where(torch.rand(coords.shape[:2], device="cuda",
+                                  generator=g) < 0.5, -1.0, 1.0)
+    coords = torch.where(far[..., None], (sign * 1e9)[..., None], coords)
+    weight = events[..., 5] * (1 - (events[..., 2] - 0.5).abs())
+    return coords[:, :npos], weight[:, :npos]       # batch-strided views
+
+
+def time_kernel(torch, label, fn, plain, library, flush, nbytes):
+    k_ms = time_ms(torch, fn, flush)
+    p_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
+    l_ms = (time_ms(torch, library, flush, reps=5, warmup=1)
+            if library is not None else None)
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    lib = f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none"
+    print(f"[flow-timing] {label}: kernel={k_ms * 1e3:.1f} us "
+          f"bound={bound * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, bytes) "
+          f"plain={p_ms * 1e3:.1f} us library={lib}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": l_ms}
+
+
+def check_close(label, got, want, rel_tol):
+    err = float((got - want).abs().max().item())
+    scale = max(1.0, float(want.abs().max().item()))
+    tol = rel_tol * scale
+    print(f"[flow-kernel-vs-plain] {label}: max_abs_diff={err:.3e} "
+          f"(bound {tol:.3e} = {rel_tol:g} x max(1, max |plain|))")
+    if not err <= tol:
+        fail(f"{label}: kernel disagrees with plain")
+    return err
+
+
+def phase_flow_kernels(torch, cfg, loss_cfg, batch):
+    """Each new kernel against its plain version and timed, at the path's
+    shapes.  Returns {kernel name: numbers for the JSON line}."""
+    from motionpriorcmax_tpu_torch.losses.focus import lut_indices
+    from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
+    from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
+
+    h, w = cfg.image_shape
+    npos = batch["num_pos_events"]
+    events = torch.from_numpy(batch["events"]).cuda()
+    ends = torch.from_numpy(batch["lut_cell_ends"]).cuda()
+    b, m, _ = events.shape
+    coords, weight = vote_inputs(torch, events, npos, 11)
+    gimg = torch.randn(b, h, w, device="cuda")
+    out = {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    # Vote (rows 3 and 4): sorted half as the path votes it, then the same
+    # events in random order.
+    perm = torch.argsort(torch.rand(b, npos, device="cuda"), dim=1)
+    unsorted = (torch.gather(coords, 1, perm[..., None].expand(-1, -1, 2)),
+                torch.gather(weight, 1, perm))
+    nnz = int((weight != 0).sum())
+    fwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4
+    bwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4 + b * npos * 8
+    for name in ("iwe_vote_fwd", "iwe_vote_bwd"):
+        out[name] = {}
+    for label, (c, v) in (("sorted", (coords, weight)), ("unsorted", unsorted)):
+        k_out = iv.iwe_vote_fwd(c, v, h, w)
+        p_out = iv.iwe_vote_fwd_plain(c, v, h, w)
+        e_f = check_close(f"iwe_vote_fwd {label} B={b} M={npos} {h}x{w}",
+                          k_out, p_out, TOL_VOTE_FWD)
+        k_dc, _ = iv.iwe_vote_bwd(c, v, gimg, h, w, need_dweight=False)
+        p_dc, _ = iv.iwe_vote_bwd_plain(c, v, gimg, h, w, need_dweight=False)
+        e_b = check_close(f"iwe_vote_bwd {label}", k_dc, p_dc, TOL_VOTE_BWD)
+        del k_out, p_out, k_dc, p_dc
+        # The library yardstick: one index_put_(accumulate=True) of the
+        # precomputed corner indices and values.
+        y1, x1, corners = iv._taps(c, h, w)
+        idx, val = [], []
+        for dy, dx, wy, wx, mask in corners:
+            idx.append(iv._flat_index(y1, x1, dy, dx, mask, h, w).reshape(-1))
+            val.append(torch.where(mask, wy * wx * v, 0.0).reshape(-1))
+        idx, val = torch.cat(idx), torch.cat(val)
+        del y1, x1, corners
+        img = torch.zeros(b * h * w, device="cuda")
+        f = time_kernel(
+            torch, f"iwe_vote_fwd {label}",
+            lambda: iv.iwe_vote_fwd(c, v, h, w),
+            lambda: iv.iwe_vote_fwd_plain(c, v, h, w),
+            lambda: img.zero_().index_put_((idx,), val, accumulate=True),
+            flush, fwd_bytes)
+        bw = time_kernel(
+            torch, f"iwe_vote_bwd {label}",
+            lambda: iv.iwe_vote_bwd(c, v, gimg, h, w, need_dweight=False),
+            lambda: iv.iwe_vote_bwd_plain(c, v, gimg, h, w,
+                                          need_dweight=False),
+            None, flush, bwd_bytes)
+        del idx, val, img
+        for name, nums, err in (("iwe_vote_fwd", f, e_f),
+                                ("iwe_vote_bwd", bw, e_b)):
+            if label == "sorted":
+                out[name].update(nums, max_abs_err=err)
+            else:
+                out[name].update(unsorted_ms=nums["ms"],
+                                 unsorted_plain_ms=nums["plain_ms"],
+                                 unsorted_library_ms=nums["library_ms"],
+                                 unsorted_max_abs_err=err)
+    del coords, weight, unsorted, perm, gimg
+    torch.cuda.empty_cache()
+
+    # LUT gather and its segment sum (row 6), the path's indices.
+    hq, wq = h // loss_cfg.lut_superpixel_size, w // loss_cfg.lut_superpixel_size
+    nb = loss_cfg.num_bins
+    lut = torch.randn(b, hq * nb, wq, 2, device="cuda")
+    rows, cols = lut_indices(loss_cfg, events, nb, sorted_layout=True)
+    # The path's cotangent is zero on padding rows (their vote weight is 0);
+    # they still form the long run of cell 0 that the kernel must walk.
+    gev = torch.randn(b, m, 2, device="cuda") * events[..., 5:6]
+    cells = hq * nb * wq
+    e_g = check_close(f"lut_gather_fwd B={b} M={m} LUT {tuple(lut.shape[1:])}",
+                      lg.lut_gather_fwd(lut, rows, cols),
+                      lg.lut_gather_plain(lut, rows, cols), 0.0)
+    e_s = check_close(f"lut_segsum_bwd S={ends.shape[1] // cells}",
+                      lg.lut_segsum_bwd(gev, ends, cells),
+                      lg.lut_segsum_plain(gev, ends, cells), TOL_SEGSUM)
+    flat = (torch.arange(b, device="cuda")[:, None] * cells
+            + rows.long() * wq + cols.long()).reshape(-1)
+    lut_flat = lut.reshape(-1, 2)
+    dl = torch.zeros(b * cells, 2, device="cuda")
+    gflat = gev.reshape(-1, 2)
+    out["lut_gather_fwd"] = time_kernel(
+        torch, "lut_gather_fwd", lambda: lg.lut_gather_fwd(lut, rows, cols),
+        lambda: lg.lut_gather_plain(lut, rows, cols),
+        lambda: lut_flat[flat], flush,
+        b * m * 8 + b * m * 2 * 4 + lut.numel() * 4)
+    out["lut_gather_fwd"]["max_abs_err"] = e_g
+    out["lut_segsum_bwd"] = time_kernel(
+        torch, "lut_segsum_bwd", lambda: lg.lut_segsum_bwd(gev, ends, cells),
+        lambda: lg.lut_segsum_plain(gev, ends, cells),
+        lambda: dl.zero_().index_add_(0, flat, gflat), flush,
+        gev.numel() * 4 + ends.numel() * 4 + b * cells * 2 * 4)
+    out["lut_segsum_bwd"]["max_abs_err"] = e_s
+    del events, ends, lut, rows, cols, gev, flat, dl, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+FLOW_KERNELS = ("iwe_vote_fwd", "iwe_vote_bwd", "lut_gather_fwd",
+                "lut_segsum_bwd")
+
+
+def kernel_wrappers():
+    from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
+    from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
+
+    fns = {"iwe_vote_fwd": iv.iwe_vote_fwd, "iwe_vote_bwd": iv.iwe_vote_bwd,
+           "lut_gather_fwd": lg.lut_gather_fwd,
+           "lut_segsum_bwd": lg.lut_segsum_bwd}
+    return fns
+
+
+def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line):
+    """train_flow at full width: 1 warm-up + 3 timed steps, one val pass,
+    a checkpoint.  Returns the kernels' launch counts over the run."""
+    import tempfile
+
+    from motionpriorcmax_tpu_torch.training.loop import train_flow
+
+    fns = kernel_wrappers()
+    marks = []          # (time, launch counts) at every step boundary
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(),
+                      {k: f.launches for k, f in fns.items()}))
+
+    def timed_batches():
+        for _ in range(FLOW_STEPS):
+            mark()
+            yield train_batch
+        mark()
+
+    npos = train_batch["num_pos_events"]
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in fns.values():
+            f.launches = 0
+        train_flow(cfg, loss_cfg, timed_batches(), [val_batch], workdir,
+                   device="cuda", max_epochs=1, num_pos_events=npos,
+                   log_every=1, seed=0)
+        launches = {k: f.launches for k, f in fns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with open(f"{workdir}/scalars.jsonl") as fh:
+            recs = [json.loads(line) for line in fh]
+        ckpts = sorted(p for p in os.listdir(f"{workdir}/checkpoints")
+                       if p.endswith(".pt"))
+    steps = []
+    for (t0, c0), (t1, c1) in zip(marks[:-1], marks[1:]):
+        steps.append((t1 - t0, {k: c1[k] - c0[k] for k in c0}))
+    losses = [r["train_losses/total"] for r in recs
+              if "train_losses/total" in r]
+    epe = [r["val_losses/EPE"] for r in recs if "val_losses/EPE" in r]
+    b, m = train_batch["events"].shape[:2]
+    valid = float(train_batch["events"][..., 5].sum())
+    for i, (dt, counts) in enumerate(steps):
+        print(f"[flow-train] step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"{dt * 1e3:.1f} ms (host batch to logged loss), loss "
+              f"{losses[i]:.6f}, launches {counts}")
+    want = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
+            "lut_segsum_bwd": 1}
+    if any(counts != want for _, counts in steps):
+        fail(f"expected {want} launches per step, got {[c for _, c in steps]}")
+    if len(losses) != FLOW_STEPS or not all(np.isfinite(losses)):
+        fail(f"train losses {losses}")
+    if len(set(losses)) < 2:
+        fail(f"the loss did not change between steps: {losses}")
+    if not epe or not np.isfinite(epe[0]):
+        fail(f"val EPE {epe}")
+    if not ckpts:
+        fail("no checkpoint written")
+    timed = [dt for dt, _ in steps[1:]]
+    mean = float(np.mean(timed))
+    h, w = cfg.image_shape
+    print(f"[flow-train] dsec.yaml B={b} {h}x{w} {cfg.compute_dtype} UNet, "
+          f"capacity {m}: "
+          f"step mean {mean * 1e3:.1f} ms over {len(timed)} steps "
+          f"({', '.join(f'{x * 1e3:.1f}' for x in timed)}), "
+          f"{b * m / mean:.4g} events/s padded ({valid / mean:.4g} valid), "
+          f"peak memory {peak / 2**30:.2f} GiB; val pass EPE {epe[0]:.4f} "
+          f"(launches {({k: launches[k] - sum(c[k] for _, c in steps) for k in launches})}); "
+          f"checkpoints {ckpts}; card {smi_line}")
+    return launches
+
+
+def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch):
+    """Where one train step's time goes, with the batch on the card."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionpriorcmax_tpu_torch.losses import focus
+    from motionpriorcmax_tpu_torch.ops import gradients
+    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
+    from motionpriorcmax_tpu_torch.training.loop import to_device
+
+    state = ttn.create_train_state(cfg, "cuda",
+                                   torch.Generator().manual_seed(0))
+    batch = to_device(train_batch, torch.device("cuda"))
+    npos = train_batch["num_pos_events"]
+    gen = torch.Generator().manual_seed(1)
+    spans = defaultdict(list)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def wrap(name, fn):
+        def inner(*a, **k):
+            s = event()
+            res = fn(*a, **k)
+            spans[name].append((s, event()))
+            return res
+        return inner
+
+    # (module, attribute, span name): functions the step looks up by name.
+    targets = [(ttn, "calculate_trajectories", "trajectories"),
+               (focus, "interpolate_flow", "knn + interpolation"),
+               (focus, "warp_events", "warp (LUT gather)"),
+               (focus, "make_iwes", "vote + blur + objective"),
+               (gradients, "focus_objective", "vote + blur + objective"),
+               (focus, "calculate_smooth_loss", "vote + blur + objective"),
+               (torch.Tensor, "backward", "backward"),
+               (state.optimizer, "step", "AdamW")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    unet = state.model.unet
+    starts = []
+    hooks = [unet.register_forward_pre_hook(lambda m, i: starts.append(event())),
+             unet.register_forward_hook(lambda m, i, o: spans["UNet forward"]
+                                        .append((starts.pop(), event())))]
+
+    def step():
+        spans.clear()
+        t0 = time.perf_counter()
+        start = event()
+        ttn.train_step(state, batch, gen, cfg, loss_cfg, npos)
+        end = event()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        parts = {k: sum(s.elapsed_time(e) for s, e in v)
+                 for k, v in spans.items()}
+        parts["rest"] = start.elapsed_time(end) - sum(parts.values())
+        return wall, start.elapsed_time(end), parts
+
+    for mod, attr, name in targets:
+        setattr(mod, attr, wrap(name, getattr(mod, attr)))
+    try:
+        step()                                              # warm-up
+        runs = [step() for _ in range(3)]
+    finally:
+        for mod, attr, fn in originals:
+            if mod is state.optimizer:
+                del mod.step
+            else:
+                setattr(mod, attr, fn)
+        for h in hooks:
+            h.remove()
+    dev_ms = float(np.median([r[1] for r in runs]))
+    print(f"[flow-breakdown] batch on the card, 3 steps after 1 warm-up: "
+          f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
+          f"CUDA events median {dev_ms:.1f} ms")
+    names = ["UNet forward", "trajectories", "knn + interpolation",
+             "warp (LUT gather)", "vote + blur + objective", "backward",
+             "AdamW", "rest"]
+    for name in names:
+        med = float(np.median([r[2].get(name, 0.0) for r in runs]))
+        print(f"[flow-breakdown]   {name:24s} {med:9.2f} ms  "
+              f"{100 * med / dev_ms:5.1f}%")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _, _ = step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("[flow-breakdown] torch.profiler recorded no device time")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[flow-breakdown] torch.profiler, one step: kernels busy "
+          f"{busy_ms:.1f} ms of {wall:.1f} ms wall, idle share "
+          f"{1 - busy_ms / wall:.3f}, {sum(e.count for e in kernels)} "
+          f"kernel launches")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:10]:
+        print(f"[flow-breakdown]   {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:5d}x  {e.key[:80]}")
+    for e in kernels:
+        if any(k in e.key for k in ("iwe_vote", "lut_gather", "lut_segsum")):
+            print(f"[flow-breakdown]   port kernel {e.key[:60]}: "
+                  f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
+                  f"launches")
+
+
+def phase_flow_card_vs_cpu(torch):
+    """One f32 train_step at the test geometry on the CPU (plain versions)
+    and on the card (kernels), same weights, batch and t_ref."""
+    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
+    from motionpriorcmax_tpu_torch.training.loop import to_device
+
+    h, w, nb = 32, 48, 15
+    cfg, loss_cfg = flow_configs(
+        {**DSEC_CONFIG, "common": {**DSEC_CONFIG["common"], "height": h,
+                                   "width": w}},
+        compute_dtype="float32", unet_widths=[8, 16, 16, 32, 32])
+    batch = collate_fixed_capacity(
+        flow_samples(3, 2, 2500, h, w, nb), 4096, polarity_aware=True,
+        lut_cell_sort_params=((h, w), nb, loss_cfg.lut_superpixel_size))
+    times = torch.cat([torch.tensor([0.37]),
+                       (torch.arange(nb) + 0.5) / nb]).float()
+    fns = kernel_wrappers()
+    before = {k: f.launches for k, f in fns.items()}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        state = ttn.create_train_state(cfg, dev,
+                                       torch.Generator().manual_seed(1))
+        logs = ttn.train_step(state, to_device(batch, torch.device(dev)),
+                              None, cfg, loss_cfg, batch["num_pos_events"],
+                              times=times)
+        results[dev] = (float(logs["train_losses/total"]),
+                        {n: p.grad.detach().cpu() for n, p in
+                         state.model.named_parameters()},
+                        {n: b.detach().cpu() for n, b in
+                         state.model.named_buffers() if "running" in n})
+    launches = {k: fns[k].launches - before[k] for k in fns}
+    (l_c, g_c, s_c), (l_g, g_g, s_g) = results["cpu"], results["cuda"]
+    loss_rel = abs(l_g - l_c) / abs(l_c)
+    grad_rel = max(float((g_g[n] - g_c[n]).abs().max()
+                         / g_c[n].abs().max().clamp(min=1e-30)) for n in g_c)
+    bn_rel = max(float((s_g[n] - s_c[n]).abs().max()
+                       / s_c[n].abs().max().clamp(min=1e-30)) for n in s_c)
+    print(f"[flow-card-vs-cpu] f32 train_step {h}x{w} B=2: loss rel diff "
+          f"{loss_rel:.3e} (bound {TOL_TRAIN_LOSS:g}), gradients max "
+          f"|diff| / max |grad| per tensor {grad_rel:.3e} (bound "
+          f"{TOL_TRAIN_GRAD:g}), BN statistics max |diff| / max |stat| per "
+          f"buffer {bn_rel:.3e} (bound "
+          f"{TOL_TRAIN_BN:g}); card launches {launches}")
+    if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
+            and bn_rel <= TOL_TRAIN_BN):
+        fail("card and CPU train steps disagree")
+    want = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
+            "lut_segsum_bwd": 1}
+    if launches != want:
+        fail(f"the card's train step launched {launches}, not {want}")
+
+
+FLOW_SOURCES = {
+    "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
+                     "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
+    "iwe_vote_bwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
+                     "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:411"),
+    "lut_gather_fwd": ("motionpriorcmax_tpu_torch/csrc/lut_gather.cu",
+                       "motionpriorcmax_tpu/ops/pallas/lut_gather.py:173"),
+    "lut_segsum_bwd": ("motionpriorcmax_tpu_torch/csrc/lut_gather.cu",
+                       "motionpriorcmax_tpu/ops/pallas/lut_gather.py:173"),
+}
+FLOW_WORK = {
+    "iwe_vote_fwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted "
+                    "(unsorted_*: the same events in random order)",
+    "iwe_vote_bwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted, "
+                    "no weight gradient (unsorted_*: random order)",
+    "lut_gather_fwd": "B=14, M=2^20, LUT [1800, 160, 2] f32",
+    "lut_segsum_bwd": "B=14, M=2^20, S=2 x 288,000 cells, C=2; replaces "
+                      "the boundary gather of ops/events.py:459-464",
+}
+
+
 def main() -> int:
     import torch
 
     t_start = time.perf_counter()
-    name, count, _ = phase_env(torch)
+    name, count, smi_line = phase_env(torch)
     phase_build()
+
+    # traj-val
     max_err, totals = phase_kernel(torch)
 
     from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
@@ -432,7 +987,8 @@ def main() -> int:
     del model, requests
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
-    kernel = {
+    print(f"[done] traj-val phases {time.perf_counter() - t_start:.1f} s")
+    kernels = [{
         "name": "corr_window_lookup", "route": "cuda",
         "source": "motionpriorcmax_tpu_torch/csrc/corr_window.cu",
         "replaces": "motionpriorcmax_tpu/ops/pallas/corr_window.py:101",
@@ -441,9 +997,33 @@ def main() -> int:
         "bound_ms": totals["bound_ms"], "bound_by": "bytes",
         "library_ms": totals["library_ms"],
         "work": "one refinement iteration: levels 1-4, B=8, 384x512, f32",
-    }
+    }]
+
+    # flow-train
+    t_flow = time.perf_counter()
+    fcfg, floss = flow_configs(DSEC_CONFIG)
+    train_batch, val_batch = phase_flow_batch(
+        fcfg, floss, DSEC_CONFIG["data"]["batch_size"])
+    numbers = phase_flow_kernels(torch, fcfg, floss, train_batch)
+    flow_launches = phase_flow_train(torch, fcfg, floss, train_batch,
+                                     val_batch, smi_line)
+    del val_batch
+    phase_flow_breakdown(torch, fcfg, floss, train_batch)
+    del train_batch
+    torch.cuda.empty_cache()
+    phase_flow_card_vs_cpu(torch)
+    print(f"[done] flow-train phases {time.perf_counter() - t_flow:.1f} s")
+    for kname in FLOW_KERNELS:
+        source, replaces = FLOW_SOURCES[kname]
+        entry = {"name": kname, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": flow_launches[kname]}
+        entry.update(numbers[kname])
+        entry["work"] = FLOW_WORK[kname]
+        kernels.append(entry)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(smi_line)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

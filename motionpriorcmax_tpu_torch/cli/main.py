@@ -1,5 +1,8 @@
 """CLI subcommands of the port (JAX: cli/main.py).
 
+flow-train: self-supervised DSEC flow training (UNet + focus loss), with
+the JAX CLI's --config / --workdir / --ckp_path / --event-capacity /
+--log-every, plus --device.
 traj-val: RAFT-Spline trajectory validation on EVIMO2, with the JAX CLI's
 arguments, Hydra-style overrides and printout, plus --device.
 """
@@ -13,6 +16,80 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def flow_configs(config: dict):
+    """(TrajectoryNetConfig, FocusLossConfig) from a propagated flow-training
+    config; `model.unet_widths` (the port's own leaf) narrows the UNet."""
+    from ..losses import make_loss
+    from ..training.trajectory_net import TrajectoryNetConfig
+
+    mc, lc = config["model"], config["loss"]
+    extra = {}
+    if "unet_widths" in mc:
+        extra["unet_widths"] = tuple(mc["unet_widths"])
+    cfg = TrajectoryNetConfig(
+        image_shape=tuple(mc["image_shape"]), lr=mc["lr"],
+        num_bins=mc["num_bins"], num_basis=mc["num_basis"],
+        patch_size=mc["patch_size"], model_type=mc.get("model_type", "default"),
+        basis_type=mc["basis_type"], skip_frames=mc.get("skip_frames", 1),
+        compute_dtype=mc.get("compute_dtype", "float32"), **extra)
+    loss_cfg = make_loss(lc["loss_name"], image_shape=tuple(lc["image_shape"]),
+                         **{k: v for k, v in lc.items()
+                            if k not in ("loss_name", "image_shape")})
+    return cfg, loss_cfg
+
+
+def cmd_flow_train(args) -> int:
+    """Self-supervised DSEC flow training (reference scripts/flow_training.py)."""
+    from datetime import datetime
+
+    from ..config import load_yaml, propagate_config
+    from ..data.dsec import DsecDatasetProvider
+    from ..data.loader import DataLoader
+    from ..device import resolve_device
+    from ..training.checkpoint import restore_checkpoint
+    from ..training.loop import train_flow
+    from ..training.trajectory_net import create_train_state
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        raise SystemExit(f"flow-train: {exc}") from None
+    config = propagate_config(load_yaml(args.config))
+    cfg, loss_cfg = flow_configs(config)
+    dc = config["data"]
+    pab = dc.get("polarity_aware_batching", False)
+    capacity = args.event_capacity
+    pos_capacity = capacity // 2 if pab else None
+
+    def make_loader(split, shuffle):
+        provider = DsecDatasetProvider(
+            dc["data_path"], split=split, num_bins=dc["num_bins"],
+            polarity_aware_batching=pab, host_voxelize=True,
+            voxel_norm_type=dc.get("norm_type", "mean_std"),
+            voxel_quantile=dc.get("quantile", 0.0))
+        return DataLoader(provider, batch_size=dc["batch_size"],
+                          capacity=capacity, shuffle=shuffle,
+                          num_workers=dc.get("num_workers", 8),
+                          polarity_aware=pab, pos_capacity=pos_capacity,
+                          lut_cell_sort_params=(
+                              loss_cfg.image_shape, loss_cfg.num_bins,
+                              loss_cfg.lut_superpixel_size))
+
+    resume_state = None
+    if args.ckp_path:
+        resume_state, step = restore_checkpoint(
+            args.ckp_path, create_train_state(cfg, device))
+        print(f"resumed from {args.ckp_path} @ step {step}")
+    workdir = args.workdir or f"runs/flow_{datetime.now():%Y%m%d_%H%M%S}"
+    out = train_flow(cfg, loss_cfg, make_loader("train", True),
+                     make_loader("val", False), workdir, device=device,
+                     max_epochs=config.get("trainer", {}).get("max_epochs", 100),
+                     num_pos_events=pos_capacity if pab else -1,
+                     resume_state=resume_state, log_every=args.log_every)
+    print(f"done: best={out['best']:.4f} steps={out['steps']}")
+    return 0
 
 
 def raft_config_from_tree(mc: dict):
@@ -141,6 +218,17 @@ def cmd_traj_val(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="motionpriorcmax_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("flow-train", help="self-supervised DSEC flow training")
+    p.add_argument("--config", required=True)
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--ckp_path", "--ckp-path", dest="ckp_path", default=None,
+                   help="a checkpoint directory of this port's flow-train")
+    p.add_argument("--event-capacity", type=int, default=1 << 20)
+    p.add_argument("--log-every", type=int, default=200)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda fails when absent")
+    p.set_defaults(fn=cmd_flow_train)
 
     p = sub.add_parser("traj-val", help="EVIMO2 trajectory validation")
     p.add_argument("--config-dir", required=True)

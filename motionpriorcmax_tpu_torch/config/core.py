@@ -1,4 +1,5 @@
-"""YAML loading and defaults-list composition (JAX: config/core.py).
+"""YAML loading, common-section propagation and defaults-list composition
+(JAX: config/core.py).
 
 A copy of the JAX package's composer; `yaml` is imported only when a file is
 read or an override parsed.
@@ -18,6 +19,30 @@ def load_yaml(path: Union[str, Path]) -> Dict[str, Any]:
 
     with open(path) as fh:
         return yaml.safe_load(fh) or {}
+
+
+def propagate_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """Copy common.* into the model / loss / data sections, in place:
+    image_shape, num_bins, polarity_aware_batching and patch_size."""
+    common = config["common"]
+    image_shape = (common["height"], common["width"])
+    config["model"]["image_shape"] = image_shape
+    if "loss" in config:
+        config["loss"]["image_shape"] = image_shape
+    num_bins = common["num_bins"]
+    config["model"]["num_bins"] = num_bins
+    if "data" in config:
+        config["data"]["num_bins"] = num_bins
+    if "loss" in config and config["loss"].get("loss_name") == "FOCUS":
+        config["loss"]["num_bins"] = num_bins
+    if "polarity_aware_batching" in common:
+        pab = common["polarity_aware_batching"]
+        if "data" in config:
+            config["data"]["polarity_aware_batching"] = pab
+        if "loss" in config:
+            config["loss"]["polarity_aware_batching"] = pab
+    config["model"]["patch_size"] = common["patch_size"]
+    return config
 
 
 def deep_merge(base: Dict[str, Any], overlay: Dict[str, Any]) -> Dict[str, Any]:

@@ -12,13 +12,13 @@
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ...device import no_tf32
 from ..basis_mlp import BasisMLP
 from .corr import build_corr_pyramid, compute_corr_volume, lookup_corr_pyramid
 from .curves import (CURVE_TYPES, coords_grid, curve_basis_matrix,
@@ -27,24 +27,6 @@ from .extractor import BasicEncoder
 from .update import BasicUpdateBlock
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Full f32 convolutions and matmuls inside, the caller's flags after.
-
-    compute_dtype='float32' means f32: neither cuDNN (which rounds to TF32 by
-    default) nor cuBLAS may drop to TF32 on the card.
-    """
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,2 +1,2 @@
-"""Model construction, validation step and checkpoint conversion
-(JAX: motionpriorcmax_tpu/training/)."""
+"""Model construction, train / validation steps, the flow-training loop
+and checkpoints (JAX: motionpriorcmax_tpu/training/)."""

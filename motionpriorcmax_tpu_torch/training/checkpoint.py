@@ -1,5 +1,13 @@
-"""RAFT-Spline weights: the flax <-> torch key map and checkpoint loading
-(JAX: training/checkpoint.py:134-295).
+"""Weights across frameworks and the port's own checkpoints
+(JAX: training/checkpoint.py).
+
+UNet (the flow model): `flax_unet_to_torch` turns JAX UNet variables into
+the port's state_dict, the inverse of JAX `torch_unet_to_flax`;
+`save_checkpoint` / `restore_checkpoint` keep the port's training state in
+torch.save format with best-k retention on a monitored metric (orbax
+checkpoints of the JAX package are not read).
+
+RAFT-Spline (JAX: training/checkpoint.py:134-295):
 
 The port's modules carry the canonical RAFT / E-RAFT state-dict names
 (conv1/norm1/layer{1-3}/conv2 encoders; encoder.convc*/gru.conv*/flow_head/
@@ -12,7 +20,9 @@ checkpoint.
 
 from __future__ import annotations
 
+import json
 from collections import OrderedDict
+from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -154,3 +164,128 @@ def load_raft_spline_weights(model: torch.nn.Module,
             if key.endswith("num_batches_tracked"):
                 sd[key] = torch.zeros((), dtype=torch.long)
     model.load_state_dict(sd, strict=True)
+
+
+# -- UNet -------------------------------------------------------------------
+
+def _double_conv_keys(src: str, dst: str):
+    """(torch key, flax path) pairs of one DoubleConv."""
+    for j, idx in enumerate((0, 3)):
+        yield f"{src}.{idx}.weight", ("params", f"{dst}/Conv_{j}", "kernel")
+    for j, idx in enumerate((1, 4)):
+        bn = f"{dst}/BatchNorm_{j}"
+        yield f"{src}.{idx}.weight", ("params", bn, "scale")
+        yield f"{src}.{idx}.bias", ("params", bn, "bias")
+        yield f"{src}.{idx}.running_mean", ("batch_stats", bn, "mean")
+        yield f"{src}.{idx}.running_var", ("batch_stats", bn, "var")
+
+
+def unet_key_map():
+    """(torch state-dict key, (collection, module path, leaf)) of every UNet
+    tensor; '/' joins the nested flax module names."""
+    yield from _double_conv_keys("inc.double_conv", "DoubleConv_0")
+    for i in range(1, 5):
+        yield from _double_conv_keys(f"down{i}.maxpool_conv.1.double_conv",
+                                     f"Down_{i - 1}/DoubleConv_0")
+    for i in range(1, 5):
+        yield f"up{i}.up.weight", ("params", f"Up_{i - 1}/ConvTranspose_0",
+                                   "kernel")
+        yield f"up{i}.up.bias", ("params", f"Up_{i - 1}/ConvTranspose_0",
+                                 "bias")
+        yield from _double_conv_keys(f"up{i}.conv.double_conv",
+                                     f"Up_{i - 1}/DoubleConv_0")
+    yield "outc.conv.weight", ("params", "Conv_0", "kernel")
+    yield "outc.conv.bias", ("params", "Conv_0", "bias")
+
+
+def flax_unet_to_torch(params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]
+                       ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX UNet (params, batch_stats) trees of arrays -> the port's UNet
+    state_dict, for `UNet.load_state_dict(strict=True)`.
+
+    Conv kernels go HWIO -> OIHW.  Transposed-conv kernels [kh, kw, in,
+    out] go to torch's [in, out, kh, kw] with the taps flipped back (JAX
+    `_tconv` flips them: torch's transposed conv is the conv gradient).
+    Every batch norm gets a `num_batches_tracked` of 0.
+    """
+    trees = {"params": params, "batch_stats": batch_stats}
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key, (coll, module, leaf) in unet_key_map():
+        node = trees[coll]
+        for part in module.split("/"):
+            node = node[part]
+        arr = np.array(node[leaf], dtype=np.float32)
+        if key.endswith(".up.weight"):
+            arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+        elif leaf == "kernel":
+            arr = np.transpose(arr, (3, 2, 0, 1))
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = (
+                torch.zeros((), dtype=torch.long))
+    return sd
+
+
+# -- the port's checkpoints ----------------------------------------------------
+
+_INDEX = "index.json"
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
+                    metric: Optional[float] = None) -> Path:
+    """Write `state` (model, optimizer, step) to <ckpt_dir>/step_<step>.pt.
+
+    With `metric`, retention keeps the `keep` checkpoints of lowest metric
+    (the reference's ModelCheckpoint(save_top_k=5) on val_losses/EPE);
+    without, the `keep` latest.  The index of retained steps and their
+    metrics is <ckpt_dir>/index.json.
+    """
+    path = Path(ckpt_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    index_path = path / _INDEX
+    index = (json.loads(index_path.read_text()) if index_path.is_file()
+             else [])
+    out = path / f"step_{step}.pt"
+    torch.save({"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": step, "metric": metric}, out)
+    index = [e for e in index if e["step"] != step]
+    index.append({"step": step, "metric": metric, "file": out.name})
+    if metric is not None:      # best first; unscored and ties: latest first
+        index.sort(key=lambda e: (e["metric"] is None, e["metric"] or 0.0,
+                                  -e["step"]))
+    else:
+        index.sort(key=lambda e: -e["step"])
+    for e in index[keep:]:
+        (path / e["file"]).unlink(missing_ok=True)
+    index_path.write_text(json.dumps(index[:keep], indent=1))
+    return out
+
+
+def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
+                       best: bool = False) -> Tuple[Any, int]:
+    """Load a checkpoint of `save_checkpoint` into `state` in place.
+
+    `step` picks one; else the best-metric one with `best`, else the
+    latest.  Returns (state, step)."""
+    path = Path(ckpt_dir)
+    index_path = path / _INDEX
+    if not index_path.is_file():
+        raise FileNotFoundError(f"no checkpoint index under {path}")
+    index = json.loads(index_path.read_text())
+    if step is None:
+        if not index:
+            raise FileNotFoundError(f"no checkpoints under {path}")
+        scored = [e for e in index if e["metric"] is not None]
+        if best and scored:
+            step = min(scored, key=lambda e: e["metric"])["step"]
+        else:
+            step = max(e["step"] for e in index)
+    device = next(state.model.parameters()).device
+    blob = torch.load(path / f"step_{step}.pt", map_location=device,
+                      weights_only=True)
+    state.model.load_state_dict(blob["model"])
+    state.optimizer.load_state_dict(blob["optimizer"])
+    state.step = int(blob["step"])
+    return state, step

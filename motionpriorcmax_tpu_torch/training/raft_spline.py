@@ -18,23 +18,22 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import no_tf32, resolve_device
 from ..metrics.core import (ae_masked, ae_masked_multi, epe_masked,
                             epe_masked_multi, n_pixel_error_masked,
                             predictions_from_lin_assumption,
                             trajectory_flow_metrics)
 from ..models.raft_spline import RAFTSpline, RAFTSplineConfig
 from ..models.raft_spline.curves import curve_flow_from_reference
-from ..models.raft_spline.raft import no_tf32
 from ..ops.padding import pad_to_multiple, requires_padding, unpad
 
 
 @torch.no_grad()
-def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """torch's default layer init (uniform +-1/sqrt(fan_in)) drawn from
     `generator`; norms keep weight 1, bias 0, running stats (0, 1)."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             mod.weight.uniform_(-bound, bound, generator=generator)
@@ -54,7 +53,7 @@ def create_raft_model(cfg: RAFTSplineConfig, device=None,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = RAFTSpline(cfg)
-    _init_weights(model, generator)
+    init_weights(model, generator)
     return model.to(dev).eval()
 
 
