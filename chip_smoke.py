@@ -49,6 +49,26 @@ Phases, one or more lines each; any failure exits non-zero:
      AdamW over 3 steps, then torch.profiler over one step (idle share)
  13. card vs CPU: one f32 train_step at the test geometry, kernels on the
      card against plain versions on the CPU: loss, gradients, BN statistics
+  flow-train with loss.knn_method: softmax and voxel grids built in the
+  step (--device-voxelize), on phase 8's batches without their 'voxel':
+ 14. kernels vs plain at the path's shapes: the softmax interpolation
+     forward and backward (G=210 groups, Q=N=19,200, per-bin band rows,
+     trajectories moved up to 60 px, 1% far outside the image; the plain
+     versions on 4 of the groups, kernel rows 7) and the voxel vote of the
+     14 x 2^20 cell-sorted events and of the same events unsorted (row 8)
+ 15. timing (CUDA events, L2 flushed): kernel, bound (operations for row 7:
+     exp2 at the SFU rate and f32 instructions, from nvidia-smi's maximum
+     SM clock; bytes for row 8), plain version, and one PyTorch call
+     (scaled_dot_product_attention, dense and without band, for the
+     forward, with its difference to the kernel; none for the backward;
+     index_add_ of the eight taps for the vote)
+ 16. training: train_flow as in phase 11: launches per step 1 + 1 softmax,
+     1 voxel vote and the 6 of phase 11; in the val pass 1 softmax forward
+     and 1 voxel vote
+ 17. where the time goes, as phase 12, with "voxelize" and "softmax
+     interpolation" spans
+ 18. card vs CPU: one f32 train_step of this configuration at the test
+     geometry
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -57,6 +77,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -478,6 +499,11 @@ FLOW_STEPS = 4                     # 1 warm-up + 3 timed
 TOL_VOTE_FWD = 1e-5                # relative to the image's largest value
 TOL_VOTE_BWD = 1e-5                # relative to the largest cotangent
 TOL_SEGSUM = 1e-5                  # relative to the largest cell sum
+# Rows 7 and 8: the interpolation sums its weights in another order than
+# the plain version's matrix product, with fused multiply-adds; the voxel
+# vote adds a voxel's votes with atomics in run-dependent order.
+TOL_SOFTMAX = 1e-5                 # relative to the largest plain value
+TOL_VOXEL = 1e-5                   # relative to the grid's largest value
 TOL_TRAIN_LOSS = 1e-4              # card vs CPU, relative
 TOL_TRAIN_GRAD = 1e-4              # card vs CPU, of each tensor's largest
 TOL_TRAIN_BN = 1e-4                # card vs CPU, of each buffer's largest
@@ -692,23 +718,232 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
     return out
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def softmax_inputs(torch, loss_cfg, b, seed):
+    """The interpolation's operands at the step's shapes: the LUT grid as
+    queries; db = linear trajectories (flow up to 60 px at t = 1, 1% of
+    them far outside the image) at the bin midtimes; values = their flow to
+    t_ref = 0.37; the per-bin band rows the step computes."""
+    from motionpriorcmax_tpu_torch.losses.focus import (interp_band,
+                                                        lut_grid_points)
+
+    loss_cfg = dataclasses.replace(loss_cfg, interp_band_per_bin=True)
+    h, w = loss_cfg.image_shape
+    s, nb = loss_cfg.lut_superpixel_size, loss_cfg.num_bins
+    wq = w // s
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grid = torch.from_numpy(lut_grid_points(loss_cfg)).to(dev)      # [N, 2]
+    n = grid.shape[0]
+    flow = (torch.rand(b, n, 2, device=dev, generator=g) * 2 - 1) * 60.0
+    far = torch.rand(b, n, device=dev, generator=g) < 0.01
+    # Far trajectories: >= 3,000 px out of the image even at bin 0.
+    flow = torch.where(far[..., None], torch.full_like(flow, 1e5), flow)
+    t_mid = (torch.arange(nb, device=dev, dtype=torch.float32) + 0.5) / nb
+    db = grid[None, None] + flow[:, None] * t_mid[None, :, None, None]
+    vals = flow[:, None] * (0.37 - t_mid)[None, :, None, None]
+    db = db.reshape(b * nb, n, 2).contiguous()
+    vals = vals.reshape(b * nb, n, 2).contiguous()
+    band = interp_band(loss_cfg, grid, db, b, nb, wq)
+    return grid, db, vals, band
+
+
+def sdpa_yardstick(torch, queries, db, vals, temp):
+    """F.scaled_dot_product_attention computing the same softmax with no
+    band: Q = [qy, qx, 1], K = [2 dy, 2 dx, -|d|^2] / temp, V = vals (head
+    dim padded to 8 with zeros), scale 1.  Returns a callable."""
+    from torch.nn import functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g, n, c = vals.shape
+    q = queries.shape[0]
+    qq = torch.zeros(g, 1, q, 8, device="cuda")
+    qq[..., 0], qq[..., 1], qq[..., 2] = queries[:, 0], queries[:, 1], 1.0
+    kk = torch.zeros(g, 1, n, 8, device="cuda")
+    kk[..., 0] = 2 * db[..., 0][:, None] / temp
+    kk[..., 1] = 2 * db[..., 1][:, None] / temp
+    kk[..., 2] = -(db * db).sum(-1)[:, None] / temp
+    vv = torch.zeros(g, 1, n, 8, device="cuda")
+    vv[..., :c] = vals[:, None]
+
+    def run():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qq, kk, vv, scale=1.0)
+    return run
+
+
+def phase_softmax_kernels(torch, loss_cfg, batch):
+    """Rows 7 (fwd, bwd) and 8 against their plain versions at the
+    softmax / device-voxelize path's shapes, then timed.  Returns {kernel
+    name: numbers for the JSON line}."""
+    from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
+    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
+
+    out = {}
+    h, w = loss_cfg.image_shape
+    nb = loss_cfg.num_bins
+    b = batch["events"].shape[0]
+    temp = float(loss_cfg.softmax_temp)
+    queries, db, vals, band = softmax_inputs(torch, loss_cfg, b, 21)
+    g, n, c = vals.shape
+    q = queries.shape[0]
+    slots = si.scan_slots(queries, band, g, n)
+    pairs = si.scanned_pairs(slots, q)
+    print(f"[softmax-kernels] G={g} Q={q} N={n} C={c}, per-bin band: "
+          f"{pairs:.4g} (query, slot) pairs scanned per pass, "
+          f"{pairs / (g * q * n):.3f} of the dense {g * q * n:.4g}")
+    # The plain versions hold one dense [Q, N] matrix per group: 4 groups
+    # (the first and last bin of two samples) against the kernels' 210.
+    sub = torch.tensor([0, nb - 1, g - nb, g - 1], device="cuda")
+    k_out, k_den = si.softmax_interp_fwd(queries, db, vals, temp, slots)
+    p_out, p_den = si.softmax_interp_fwd_plain(queries, db[sub], vals[sub],
+                                               temp, slots[sub])
+    e_f = check_close(f"softmax_interp_fwd G={g} Q=N={q} (groups "
+                      f"{sub.tolist()} vs plain)", k_out[sub], p_out,
+                      TOL_SOFTMAX)
+    check_close("softmax_interp_fwd den", k_den[sub], p_den, TOL_SOFTMAX)
+    gout = torch.randn(g, q, c, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(22))
+    gs = (gout / torch.clamp(k_den, min=1e-30)[..., None]).contiguous()
+    k_dv = si.softmax_interp_bwd(queries, db, gs, temp, slots)
+    p_dv = si.softmax_interp_bwd_plain(queries, db[sub], gs[sub], temp,
+                                       slots[sub])
+    e_b = check_close("softmax_interp_bwd (same groups)", k_dv[sub], p_dv,
+                      TOL_SOFTMAX)
+    del p_out, p_den, p_dv
+    torch.cuda.empty_cache()
+
+    # Bound: operations.  Per pair one exp2 on the SFUs (16 per SM per
+    # clock) and f32 instructions at 128 per SM per clock: fwd sub, sub,
+    # mul, fma, the denominator add and C fmas; bwd the same but the add.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    lib = sdpa_yardstick(torch, queries, db, vals, temp)
+    try:
+        # Against the kernel without band, which scans what SDPA sums: the
+        # difference is SDPA's expansion-form logits (and its max shift).
+        sdpa_out = lib()[:, 0, :, :c]
+        full_slots = si.scan_slots(queries, (0.0, 0.0, 0.0), g, n)
+        full_out, _ = si.softmax_interp_fwd(queries, db, vals, temp,
+                                            full_slots)
+        sdpa_err = float((sdpa_out - full_out).abs().max())
+        print(f"[softmax-kernels] scaled_dot_product_attention vs the "
+              f"kernel without band: max_abs_diff={sdpa_err:.3e}; the band "
+              f"changes the kernel's output by "
+              f"{float((full_out - k_out).abs().max()):.3e}")
+        del sdpa_out, full_out, full_slots
+    except RuntimeError as exc:          # no SDPA backend for these inputs
+        print(f"[softmax-timing] scaled_dot_product_attention refused: {exc}")
+        lib, sdpa_err = None, None
+    for name, fp32_ops, fn, plain, library, err, nbytes in (
+            ("softmax_interp_fwd", 5 + c,
+             lambda: si.softmax_interp_fwd(queries, db, vals, temp, slots),
+             lambda: si.softmax_interp_fwd_plain(queries, db, vals, temp,
+                                                 slots),
+             lib, e_f, q * 8 + g * n * (8 + 4 * c) + g * q * 4 * (c + 1)),
+            ("softmax_interp_bwd", 4 + c,
+             lambda: si.softmax_interp_bwd(queries, db, gs, temp, slots),
+             lambda: si.softmax_interp_bwd_plain(queries, db, gs, temp,
+                                                 slots),
+             None, e_b, q * 8 + g * n * 8 + g * q * 4 * c + g * n * 4 * c)):
+        k_ms = time_ms(torch, fn, flush, reps=10, warmup=2)
+        p_ms = time_ms(torch, plain, flush, reps=1, warmup=1)
+        l_ms = (time_ms(torch, library, flush, reps=3, warmup=1)
+                if library is not None else None)
+        sfu_ms = pairs / (16 * sms * clock) * 1e3
+        f32_ms = pairs * fp32_ops / (128 * sms * clock) * 1e3
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        bound = max(sfu_ms, f32_ms, bytes_ms)
+        lib_txt = (f"{l_ms * 1e3:.1f} us (dense, no band; max |diff| to "
+                   f"the unbanded kernel {sdpa_err:.3e})" if l_ms is not None
+                   else "none")
+        print(f"[softmax-timing] {name}: kernel={k_ms * 1e3:.1f} us "
+              f"bound={bound * 1e3:.1f} us (operations: exp2 {sfu_ms * 1e3:.1f}"
+              f" us at 16/SM/clk, f32 {f32_ms * 1e3:.1f} us at 128/SM/clk, "
+              f"{sms} SMs at {clock / 1e6:.0f} MHz; bytes {bytes_ms * 1e3:.1f}"
+              f" us) plain={p_ms * 1e3:.1f} us library={lib_txt}")
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                     "bound_by": "operations", "library_ms": l_ms,
+                     "max_abs_err": err, "pairs": pairs}
+    out["softmax_interp_fwd"]["library_max_abs_diff"] = sdpa_err
+    del queries, db, vals, slots, k_out, k_den, gout, gs, k_dv, lib
+    torch.cuda.empty_cache()
+
+    # Row 8: the step's events (cell-sorted per polarity half), then the
+    # same events in random order.
+    events = torch.from_numpy(batch["events"]).cuda()
+    m = events.shape[1]
+    perm = torch.argsort(torch.rand(b, m, device="cuda"), dim=1)
+    unsorted = torch.gather(events, 1, perm[..., None].expand(-1, -1, 6))
+    del perm
+    nbytes = events.numel() * 4 + b * nb * h * w * 4
+    img = torch.zeros(b * nb * h * w, device="cuda")
+    for label, ev in (("sorted", events), ("unsorted", unsorted)):
+        err = check_close(f"voxel_vote {label} B={b} M={m} {nb}x{h}x{w}",
+                          vv.voxel_vote(ev, nb, h, w),
+                          vv.voxel_vote_plain(ev, nb, h, w), TOL_VOXEL)
+        idx, val = vv.voxel_taps(ev, nb, h, w)
+        idx, val = idx.reshape(-1), val.reshape(-1)
+        nums = time_kernel(
+            torch, f"voxel_vote {label}", lambda: vv.voxel_vote(ev, nb, h, w),
+            lambda: vv.voxel_vote_plain(ev, nb, h, w),
+            lambda: img.zero_().index_add_(0, idx, val), flush, nbytes)
+        if label == "sorted":
+            out["voxel_vote"] = dict(nums, max_abs_err=err)
+        else:
+            out["voxel_vote"].update(unsorted_ms=nums["ms"],
+                                     unsorted_plain_ms=nums["plain_ms"],
+                                     unsorted_library_ms=nums["library_ms"],
+                                     unsorted_max_abs_err=err)
+        del idx, val
+    del events, unsorted, img, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 FLOW_KERNELS = ("iwe_vote_fwd", "iwe_vote_bwd", "lut_gather_fwd",
                 "lut_segsum_bwd")
+SOFTMAX_KERNELS = ("softmax_interp_fwd", "softmax_interp_bwd", "voxel_vote")
+# Launches per train step and in the val pass of the two flow-train paths.
+EXACT_STEP = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
+              "lut_segsum_bwd": 1, "softmax_interp_fwd": 0,
+              "softmax_interp_bwd": 0, "voxel_vote": 0}
+EXACT_VAL = {**EXACT_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0}
+SOFTMAX_STEP = {**EXACT_STEP, "softmax_interp_fwd": 1,
+                "softmax_interp_bwd": 1, "voxel_vote": 1}
+SOFTMAX_VAL = {**SOFTMAX_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0,
+               "softmax_interp_bwd": 0}
 
 
 def kernel_wrappers():
     from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
     from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
+    from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
+    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
 
     fns = {"iwe_vote_fwd": iv.iwe_vote_fwd, "iwe_vote_bwd": iv.iwe_vote_bwd,
            "lut_gather_fwd": lg.lut_gather_fwd,
-           "lut_segsum_bwd": lg.lut_segsum_bwd}
+           "lut_segsum_bwd": lg.lut_segsum_bwd,
+           "softmax_interp_fwd": si.softmax_interp_fwd,
+           "softmax_interp_bwd": si.softmax_interp_bwd,
+           "voxel_vote": vv.voxel_vote}
     return fns
 
 
-def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line):
+def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
+                     want, val_want, tag="flow-train"):
     """train_flow at full width: 1 warm-up + 3 timed steps, one val pass,
-    a checkpoint.  Returns the kernels' launch counts over the run."""
+    a checkpoint.  Fails unless every step launches `want` and the val
+    pass `val_want`.  Returns the kernels' launch counts over the run."""
     import tempfile
 
     from motionpriorcmax_tpu_torch.training.loop import train_flow
@@ -751,13 +986,14 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line):
     b, m = train_batch["events"].shape[:2]
     valid = float(train_batch["events"][..., 5].sum())
     for i, (dt, counts) in enumerate(steps):
-        print(f"[flow-train] step {i}{' (warm-up)' if i == 0 else ''}: "
+        print(f"[{tag}] step {i}{' (warm-up)' if i == 0 else ''}: "
               f"{dt * 1e3:.1f} ms (host batch to logged loss), loss "
               f"{losses[i]:.6f}, launches {counts}")
-    want = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
-            "lut_segsum_bwd": 1}
     if any(counts != want for _, counts in steps):
         fail(f"expected {want} launches per step, got {[c for _, c in steps]}")
+    in_val = {k: launches[k] - sum(c[k] for _, c in steps) for k in launches}
+    if in_val != val_want:
+        fail(f"expected {val_want} launches in the val pass, got {in_val}")
     if len(losses) != FLOW_STEPS or not all(np.isfinite(losses)):
         fail(f"train losses {losses}")
     if len(set(losses)) < 2:
@@ -769,18 +1005,20 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line):
     timed = [dt for dt, _ in steps[1:]]
     mean = float(np.mean(timed))
     h, w = cfg.image_shape
-    print(f"[flow-train] dsec.yaml B={b} {h}x{w} {cfg.compute_dtype} UNet, "
+    print(f"[{tag}] dsec.yaml B={b} {h}x{w} {cfg.compute_dtype} UNet, "
+          f"knn_method {loss_cfg.knn_method}, "
+          f"{'host' if 'voxel' in train_batch else 'device'} voxel, "
           f"capacity {m}: "
           f"step mean {mean * 1e3:.1f} ms over {len(timed)} steps "
           f"({', '.join(f'{x * 1e3:.1f}' for x in timed)}), "
           f"{b * m / mean:.4g} events/s padded ({valid / mean:.4g} valid), "
           f"peak memory {peak / 2**30:.2f} GiB; val pass EPE {epe[0]:.4f} "
-          f"(launches {({k: launches[k] - sum(c[k] for _, c in steps) for k in launches})}); "
-          f"checkpoints {ckpts}; card {smi_line}")
+          f"(launches {in_val}); checkpoints {ckpts}; card {smi_line}")
     return launches
 
 
-def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch):
+def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
+                         tag="flow-breakdown"):
     """Where one train step's time goes, with the batch on the card."""
     from collections import defaultdict
 
@@ -813,8 +1051,11 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch):
         return inner
 
     # (module, attribute, span name): functions the step looks up by name.
-    targets = [(ttn, "calculate_trajectories", "trajectories"),
-               (focus, "interpolate_flow", "knn + interpolation"),
+    interp = ("softmax interpolation" if loss_cfg.knn_method == "softmax"
+              else "knn + interpolation")
+    targets = [(ttn, "voxelize_batch_on_device", "voxelize"),
+               (ttn, "calculate_trajectories", "trajectories"),
+               (focus, "interpolate_flow", interp),
                (focus, "warp_events", "warp (LUT gather)"),
                (focus, "make_iwes", "vote + blur + objective"),
                (gradients, "focus_objective", "vote + blur + objective"),
@@ -855,15 +1096,15 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch):
         for h in hooks:
             h.remove()
     dev_ms = float(np.median([r[1] for r in runs]))
-    print(f"[flow-breakdown] batch on the card, 3 steps after 1 warm-up: "
+    print(f"[{tag}] batch on the card, 3 steps after 1 warm-up: "
           f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
           f"CUDA events median {dev_ms:.1f} ms")
-    names = ["UNet forward", "trajectories", "knn + interpolation",
+    names = ["voxelize", "UNet forward", "trajectories", interp,
              "warp (LUT gather)", "vote + blur + objective", "backward",
              "AdamW", "rest"]
     for name in names:
         med = float(np.median([r[2].get(name, 0.0) for r in runs]))
-        print(f"[flow-breakdown]   {name:24s} {med:9.2f} ms  "
+        print(f"[{tag}]   {name:24s} {med:9.2f} ms  "
               f"{100 * med / dev_ms:5.1f}%")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -872,27 +1113,30 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print("[flow-breakdown] torch.profiler recorded no device time")
+        print(f"[{tag}] torch.profiler recorded no device time")
         return
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[flow-breakdown] torch.profiler, one step: kernels busy "
+    print(f"[{tag}] torch.profiler, one step: kernels busy "
           f"{busy_ms:.1f} ms of {wall:.1f} ms wall, idle share "
           f"{1 - busy_ms / wall:.3f}, {sum(e.count for e in kernels)} "
           f"kernel launches")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:10]:
-        print(f"[flow-breakdown]   {e.self_device_time_total / 1e3:9.2f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:5d}x  {e.key[:80]}")
     for e in kernels:
-        if any(k in e.key for k in ("iwe_vote", "lut_gather", "lut_segsum")):
-            print(f"[flow-breakdown]   port kernel {e.key[:60]}: "
+        if any(k in e.key for k in ("iwe_vote", "lut_gather", "lut_segsum",
+                                    "softmax_interp", "voxel_vote")):
+            print(f"[{tag}]   port kernel {e.key[:60]}: "
                   f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
                   f"launches")
 
 
-def phase_flow_card_vs_cpu(torch):
+def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
+                           want=EXACT_STEP, tag="flow-card-vs-cpu"):
     """One f32 train_step at the test geometry on the CPU (plain versions)
-    and on the card (kernels), same weights, batch and t_ref."""
+    and on the card (kernels), same weights, batch and t_ref; with
+    `device_voxel` the batch carries no 'voxel'."""
     from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
     from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
     from motionpriorcmax_tpu_torch.training.loop import to_device
@@ -900,11 +1144,14 @@ def phase_flow_card_vs_cpu(torch):
     h, w, nb = 32, 48, 15
     cfg, loss_cfg = flow_configs(
         {**DSEC_CONFIG, "common": {**DSEC_CONFIG["common"], "height": h,
-                                   "width": w}},
+                                   "width": w},
+         "loss": {**DSEC_CONFIG["loss"], **(loss_overrides or {})}},
         compute_dtype="float32", unet_widths=[8, 16, 16, 32, 32])
     batch = collate_fixed_capacity(
         flow_samples(3, 2, 2500, h, w, nb), 4096, polarity_aware=True,
         lut_cell_sort_params=((h, w), nb, loss_cfg.lut_superpixel_size))
+    if device_voxel:
+        del batch["voxel"]
     times = torch.cat([torch.tensor([0.37]),
                        (torch.arange(nb) + 0.5) / nb]).float()
     fns = kernel_wrappers()
@@ -928,7 +1175,9 @@ def phase_flow_card_vs_cpu(torch):
                          / g_c[n].abs().max().clamp(min=1e-30)) for n in g_c)
     bn_rel = max(float((s_g[n] - s_c[n]).abs().max()
                        / s_c[n].abs().max().clamp(min=1e-30)) for n in s_c)
-    print(f"[flow-card-vs-cpu] f32 train_step {h}x{w} B=2: loss rel diff "
+    print(f"[{tag}] f32 train_step {h}x{w} B=2, knn_method "
+          f"{loss_cfg.knn_method}, {'device' if device_voxel else 'host'} "
+          f"voxel: loss rel diff "
           f"{loss_rel:.3e} (bound {TOL_TRAIN_LOSS:g}), gradients max "
           f"|diff| / max |grad| per tensor {grad_rel:.3e} (bound "
           f"{TOL_TRAIN_GRAD:g}), BN statistics max |diff| / max |stat| per "
@@ -937,8 +1186,6 @@ def phase_flow_card_vs_cpu(torch):
     if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
             and bn_rel <= TOL_TRAIN_BN):
         fail("card and CPU train steps disagree")
-    want = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
-            "lut_segsum_bwd": 1}
     if launches != want:
         fail(f"the card's train step launched {launches}, not {want}")
 
@@ -952,6 +1199,14 @@ FLOW_SOURCES = {
                        "motionpriorcmax_tpu/ops/pallas/lut_gather.py:173"),
     "lut_segsum_bwd": ("motionpriorcmax_tpu_torch/csrc/lut_gather.cu",
                        "motionpriorcmax_tpu/ops/pallas/lut_gather.py:173"),
+    "softmax_interp_fwd": (
+        "motionpriorcmax_tpu_torch/csrc/softmax_interp.cu",
+        "motionpriorcmax_tpu/ops/pallas/softmax_interp.py:276"),
+    "softmax_interp_bwd": (
+        "motionpriorcmax_tpu_torch/csrc/softmax_interp.cu",
+        "motionpriorcmax_tpu/ops/pallas/softmax_interp.py:357"),
+    "voxel_vote": ("motionpriorcmax_tpu_torch/csrc/voxel_vote.cu",
+                   "motionpriorcmax_tpu/ops/pallas/voxel_vote.py:242"),
 }
 FLOW_WORK = {
     "iwe_vote_fwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted "
@@ -961,6 +1216,13 @@ FLOW_WORK = {
     "lut_gather_fwd": "B=14, M=2^20, LUT [1800, 160, 2] f32",
     "lut_segsum_bwd": "B=14, M=2^20, S=2 x 288,000 cells, C=2; replaces "
                       "the boundary gather of ops/events.py:459-464",
+    "softmax_interp_fwd": "G=210, Q=N=19,200, C=2, per-bin band, f32 "
+                          "(library: scaled_dot_product_attention, dense, "
+                          "no band)",
+    "softmax_interp_bwd": "G=210, Q=N=19,200, C=2, per-bin band, f32 "
+                          "d vals",
+    "voxel_vote": "B=14, M=2^20 cell-sorted events -> 14 x 15 x 480 x 640 "
+                  "(unsorted_*: the same events in random order)",
 }
 
 
@@ -999,24 +1261,45 @@ def main() -> int:
         "work": "one refinement iteration: levels 1-4, B=8, 384x512, f32",
     }]
 
-    # flow-train
+    # flow-train, exact KNN and host voxel grids
     t_flow = time.perf_counter()
     fcfg, floss = flow_configs(DSEC_CONFIG)
     train_batch, val_batch = phase_flow_batch(
         fcfg, floss, DSEC_CONFIG["data"]["batch_size"])
     numbers = phase_flow_kernels(torch, fcfg, floss, train_batch)
     flow_launches = phase_flow_train(torch, fcfg, floss, train_batch,
-                                     val_batch, smi_line)
-    del val_batch
+                                     val_batch, smi_line, EXACT_STEP,
+                                     EXACT_VAL)
     phase_flow_breakdown(torch, fcfg, floss, train_batch)
-    del train_batch
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch)
     print(f"[done] flow-train phases {time.perf_counter() - t_flow:.1f} s")
-    for kname in FLOW_KERNELS:
+
+    # flow-train, knn_method softmax and voxel grids built in the step:
+    # phase 8's batches without their 'voxel'
+    t_soft = time.perf_counter()
+    scfg, sloss = flow_configs({**DSEC_CONFIG, "loss": {
+        **DSEC_CONFIG["loss"], "knn_method": "softmax"}})
+    train_batch.pop("voxel")
+    val_batch.pop("voxel")
+    numbers.update(phase_softmax_kernels(torch, sloss, train_batch))
+    soft_launches = phase_flow_train(torch, scfg, sloss, train_batch,
+                                     val_batch, smi_line, SOFTMAX_STEP,
+                                     SOFTMAX_VAL, tag="softmax-train")
+    del val_batch
+    phase_flow_breakdown(torch, scfg, sloss, train_batch,
+                         tag="softmax-breakdown")
+    del train_batch
+    torch.cuda.empty_cache()
+    phase_flow_card_vs_cpu(torch, {"knn_method": "softmax"}, True,
+                           SOFTMAX_STEP, tag="softmax-card-vs-cpu")
+    print(f"[done] softmax flow-train phases "
+          f"{time.perf_counter() - t_soft:.1f} s")
+    for kname in FLOW_KERNELS + SOFTMAX_KERNELS:
         source, replaces = FLOW_SOURCES[kname]
+        runs = soft_launches if kname in SOFTMAX_KERNELS else flow_launches
         entry = {"name": kname, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": flow_launches[kname]}
+                 "replaces": replaces, "launches": runs[kname]}
         entry.update(numbers[kname])
         entry["work"] = FLOW_WORK[kname]
         kernels.append(entry)

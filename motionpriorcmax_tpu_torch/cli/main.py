@@ -2,7 +2,8 @@
 
 flow-train: self-supervised DSEC flow training (UNet + focus loss), with
 the JAX CLI's --config / --workdir / --ckp_path / --event-capacity /
---log-every, plus --device.
+--log-every / --device-voxelize (voxel grids built inside the step from the
+batch's events instead of by the loader), plus --device.
 traj-val: RAFT-Spline trajectory validation on EVIMO2, with the JAX CLI's
 arguments, Hydra-style overrides and printout, plus --device.
 """
@@ -66,7 +67,8 @@ def cmd_flow_train(args) -> int:
     def make_loader(split, shuffle):
         provider = DsecDatasetProvider(
             dc["data_path"], split=split, num_bins=dc["num_bins"],
-            polarity_aware_batching=pab, host_voxelize=True,
+            polarity_aware_batching=pab,
+            host_voxelize=not args.device_voxelize,
             voxel_norm_type=dc.get("norm_type", "mean_std"),
             voxel_quantile=dc.get("quantile", 0.0))
         return DataLoader(provider, batch_size=dc["batch_size"],
@@ -226,6 +228,10 @@ def main(argv=None) -> int:
                    help="a checkpoint directory of this port's flow-train")
     p.add_argument("--event-capacity", type=int, default=1 << 20)
     p.add_argument("--log-every", type=int, default=200)
+    p.add_argument("--device-voxelize", action="store_true",
+                   help="voxelize the batch's (capacity-truncated) events "
+                        "inside the step, on the device, instead of every "
+                        "event of the window in the loader")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda fails when absent")
     p.set_defaults(fn=cmd_flow_train)

@@ -4,7 +4,8 @@
 Per step:
   1. reconstruction times: t_ref, then the bin midpoints
   2. exact K nearest trajectories of every superpixel-LUT cell at each
-     bin's midtime (`ops/knn.py`)
+     bin's midtime (`ops/knn.py`), or with knn_method='softmax' the banded
+     exponential-kernel interpolation (the softmax-interp kernels)
   3. per-cell flow to t_ref: mean (or inverse-distance) over the K
   4. per-event flow lookup by (bin, y // s, x // s) and warp: the LUT-gather
      kernels when events arrive cell-sorted (`cell_ends`)
@@ -26,6 +27,7 @@ import torch
 
 from ..ops import events as ev_ops
 from ..ops import gradients as grad_ops
+from ..ops.cuda.softmax_interp import softmax_interp
 from ..ops.knn import knn_blocked
 
 EPS = 1e-9
@@ -35,12 +37,18 @@ EPS = 1e-9
 class FocusLossConfig:
     """The JAX config's field names, so YAML files translate unchanged.
 
-    The TPU tiling fields at the end (`knn_block_size`, `use_pallas_interp`,
-    `interp_*`, `iwe_impl`, `vote_band_px`, `lut_gather_impl`,
-    `segsum_gather_impl`) are read and have no effect in the port: the vote
-    and the sorted LUT gather always run the port's kernels, and the KNN
-    bounds its blocks by memory (ops/knn.py).  `knn_method` other than
-    'exact' raises NotImplementedError.
+    `knn_method` is 'exact' (the K nearest trajectories, ops/knn.py) or
+    'softmax' (`_softmax_interpolate_flow`, l2 only); 'approx', 'grid' and
+    'grid_approx' raise NotImplementedError.  The softmax fields
+    (`softmax_temp`, `interp_band_px`, `interp_band_dynamic` False / True /
+    'per_group', `interp_band_per_bin`, `interp_cross` None / 'vpu' /
+    'mxu', `interp_exp_dtype` 'float32' / 'bfloat16') act as in the JAX
+    package's Pallas branch.  `use_pallas_interp` is read and ignored: the
+    port always computes the TPU kernel's function, which JAX runs only on
+    a TPU by default.  The remaining TPU tiling fields (`knn_block_size`,
+    `iwe_impl`, `vote_band_px`, `lut_gather_impl`, `segsum_gather_impl`)
+    have no effect: the vote and the sorted LUT gather always run the
+    port's kernels, and the KNN bounds its blocks by memory.
     """
 
     image_shape: Tuple[int, int] = (480, 640)
@@ -60,7 +68,7 @@ class FocusLossConfig:
     focus_loss_epsilon: float = 0.0
     knn_method: str = "exact"
     is_needing_offsets: bool = True
-    # TPU tiling knobs of the JAX config: no effect here (see above).
+    # Softmax interpolation and TPU tiling fields (see above).
     knn_block_size: int = 1024
     softmax_temp: float = 25.0
     use_pallas_interp: Optional[bool] = None
@@ -75,10 +83,25 @@ class FocusLossConfig:
     segsum_gather_impl: Optional[str] = None
 
     def __post_init__(self):
-        if self.knn_method != "exact":
+        if self.knn_method not in ("exact", "softmax"):
             raise NotImplementedError(
                 f"knn_method={self.knn_method!r} is not ported; the port "
-                "runs 'exact' (softmax waits for its kernel)")
+                "runs 'exact' and 'softmax'")
+        if self.knn_method == "softmax" and self.dist_norm != "l2":
+            raise NotImplementedError(
+                f"knn_method='softmax' with dist_norm={self.dist_norm!r}: "
+                "the softmax interpolation is l2 only")
+        if (isinstance(self.interp_band_dynamic, str)
+                and self.interp_band_dynamic != "per_group"):
+            raise ValueError(
+                "interp_band_dynamic must be False, True or 'per_group', got "
+                f"{self.interp_band_dynamic!r}")
+        if self.interp_cross not in (None, "vpu", "mxu"):
+            raise ValueError("interp_cross must be 'vpu', 'mxu' or None, got "
+                             f"{self.interp_cross!r}")
+        if self.interp_exp_dtype not in ("float32", "bfloat16"):
+            raise ValueError("interp_exp_dtype must be 'float32' or "
+                             f"'bfloat16', got {self.interp_exp_dtype!r}")
         if self.scale_iwe_by_dt and self.num_tref != 1:
             raise ValueError("scale_iwe_by_dt needs num_tref == 1")
         if self.polarity_aware_batching and self.num_tref != 1:
@@ -144,6 +167,9 @@ def interpolate_flow(cfg: FocusLossConfig, traj_at_tref: torch.Tensor,
     b, n_bins, n, _ = traj_at_tmid.shape
     grid_points = torch.from_numpy(lut_grid_points(cfg)).to(
         traj_at_tmid.device)
+    if cfg.knn_method == "softmax":
+        return _softmax_interpolate_flow(cfg, grid_points, traj_at_tref,
+                                         traj_at_tmid, hq, wq)
 
     # KNN per (batch, bin), on positions without gradient (the indices are
     # integers; the reference's KeOps argKmin).
@@ -175,6 +201,89 @@ def interpolate_flow(cfg: FocusLossConfig, traj_at_tref: torch.Tensor,
         diff_next = (traj_at_tmid[:, 1:] - traj_at_tmid[:, :-1])[..., None, :]
         fn_k = _gather_traj(diff_next, idx[:, :-1])
         flow_to_next = fn_k.mean(dim=3).reshape(b, n_bins - 1, hq, wq, 1, 2)
+    return flow_lut, flow_to_next
+
+
+def interp_band(cfg: FocusLossConfig, grid_points: torch.Tensor,
+                db: torch.Tensor, b: int, n_bins: int, wq: int):
+    """The softmax interpolation's row band (JAX focus.py:345-379):
+
+    - `interp_band_dynamic` (with interp_band_px > 0): margin = the largest
+      |y displacement| of the db points from their nominal grid rows, plus
+      4 sqrt(temp) + cell; True shares one margin, 'per_group' gives each
+      (batch, bin) group its own.  Computed on the device, no host sync.
+    - `interp_band_per_bin`: bin b's margin is tail + (interp_band_px -
+      tail) * t_mid_b (tail = 4 sqrt(temp)), sound for trajectories whose
+      displacement grows linearly from t = 0.
+    - else the static (interp_band_px, cell, wq); a margin <= 0 scans all.
+    """
+    s = float(cfg.lut_superpixel_size)
+    temp = cfg.softmax_temp
+    n = db.shape[1]
+    if cfg.interp_band_dynamic and cfg.interp_band_px > 0:
+        if n == grid_points.shape[0]:
+            slot_y = grid_points[:, 0]
+        else:
+            slot_y = torch.div(torch.arange(n, dtype=torch.float32,
+                                            device=db.device), wq,
+                               rounding_mode="floor") * s + s / 2.0 - 0.5
+        tail = 4.0 * float(np.sqrt(temp)) + s
+        ydisp = torch.abs(db[..., 0] - slot_y[None, :]).detach()     # [G, N]
+        if cfg.interp_band_dynamic == "per_group":
+            margin = ydisp.amax(dim=1) + tail                        # [G]
+        else:
+            margin = ydisp.amax()[None] + tail                       # [1]
+        return torch.stack([margin, torch.full_like(margin, s),
+                            torch.full_like(margin, float(wq))], dim=-1)
+    if cfg.interp_band_per_bin and cfg.interp_band_px > 0:
+        margin = float(cfg.interp_band_px)
+        tail = 4.0 * float(np.sqrt(temp))
+        t_mid = (np.arange(n_bins, dtype=np.float32) + 0.5) / n_bins
+        mb = np.minimum(tail + (margin - tail) * t_mid, margin)
+        rows = np.stack([np.tile(mb, b), np.full(b * n_bins, s, np.float32),
+                         np.full(b * n_bins, wq, np.float32)], axis=-1)
+        return torch.from_numpy(rows.astype(np.float32)).to(db.device)
+    return (float(cfg.interp_band_px), s, float(wq))
+
+
+def _softmax_interpolate_flow(cfg: FocusLossConfig, grid_points: torch.Tensor,
+                              traj_at_tref: torch.Tensor,
+                              traj_at_tmid: torch.Tensor, hq: int, wq: int
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Flow LUT as a banded exponential-kernel interpolation (the JAX Pallas
+    branch, focus.py:301-396): per (batch, bin) group,
+
+        out[q] = sum_n softmax_n(-|q - traj_at_tmid[n]|^2 / temp) value[n]
+
+    over the band's scanned trajectories, with value = flow to each t_ref
+    (plus flow to the next bin with smooth_type 'on_flow_to_next').  The
+    weights carry no gradient (db is detached): gradients reach the
+    trajectories through the values only.
+    """
+    b, n_bins, n, _ = traj_at_tmid.shape
+    n_tref = traj_at_tref.shape[1]
+    flow_to_tref = (traj_at_tref.permute(0, 2, 1, 3)[:, None]
+                    - traj_at_tmid[:, :, :, None, :])     # [B, T, N, R, 2]
+    values = flow_to_tref.reshape(b, n_bins, n, n_tref * 2)
+    want_next = cfg.smooth_weight > 0 and cfg.smooth_type == "on_flow_to_next"
+    if want_next:
+        diff_next = traj_at_tmid[:, 1:] - traj_at_tmid[:, :-1]
+        # The last bin has no next bin: zeros, discarded below.
+        values = torch.cat([values, torch.cat(
+            [diff_next, torch.zeros_like(diff_next[:, :1])], dim=1)], dim=-1)
+    c = values.shape[-1]
+    db = traj_at_tmid.detach().reshape(b * n_bins, n, 2).contiguous()
+    out = softmax_interp(
+        grid_points, db, values.reshape(b * n_bins, n, c).contiguous(),
+        float(cfg.softmax_temp), interp_band(cfg, grid_points, db, b, n_bins,
+                                             wq),
+        cfg.interp_exp_dtype, cfg.interp_cross or "vpu")
+    out = out.reshape(b, n_bins, hq, wq, c)
+    flow_lut = out[..., :n_tref * 2].reshape(b, n_bins, hq, wq, n_tref, 2)
+    flow_to_next = None
+    if want_next:
+        flow_to_next = out[:, :-1, :, :, n_tref * 2:].reshape(
+            b, n_bins - 1, hq, wq, 1, 2)
     return flow_lut, flow_to_next
 
 

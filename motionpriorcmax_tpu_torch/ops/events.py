@@ -1,11 +1,12 @@
-"""Event rows, the IWE vote, the 3x3 blur and the flow-LUT gather
-(JAX: ops/events.py).
+"""Event rows, the voxel grid, the IWE vote, the 3x3 blur and the flow-LUT
+gather (JAX: ops/events.py).
 
 Events are fixed-capacity tensors [..., M, 6] with float32 rows
-(y, x, t, p, bin, valid); padding rows carry valid = 0.  The vote and the
-sorted LUT gather go through the hand-written kernels of `ops/cuda/`
-(`iwe_vote.py`, `lut_gather.py`): on CUDA tensors they launch the kernels,
-on CPU tensors they run the kernels' plain versions.
+(y, x, t, p, bin, valid); padding rows carry valid = 0.  The voxel vote,
+the IWE vote and the sorted LUT gather go through the hand-written kernels
+of `ops/cuda/` (`voxel_vote.py`, `iwe_vote.py`, `lut_gather.py`): on CUDA
+tensors they launch the kernels, on CPU tensors they run the kernels' plain
+versions.
 """
 
 from __future__ import annotations
@@ -17,9 +18,62 @@ import torch
 
 from .cuda.iwe_vote import iwe_vote
 from .cuda.lut_gather import lut_gather
+from .cuda.voxel_vote import voxel_vote
 
 EVENT_COLS = ("y", "x", "t", "p", "bin", "valid")
 Y, X, T, P, BIN, VALID = range(6)
+
+# torch.quantile refuses inputs of more elements than this.
+_QUANTILE_MAX_ELEMENTS = 1 << 24
+
+
+def voxel_grid_from_events(events: torch.Tensor, *, num_bins: int,
+                           height: int, width: int) -> torch.Tensor:
+    """[B, M, 6] rows with t in [0, 1] -> [B, num_bins, H, W] f32 trilinear
+    voxel grids (JAX: voxel_grid_from_events on t_norm = t * (num_bins - 1),
+    per sample): value (2p - 1) * valid, floor / floor + 1 taps, each axis
+    masked to its range.  One launch of the voxel-vote kernel on the card.
+    """
+    return voxel_vote(events, num_bins, height, width)
+
+
+def clamp_voxel_grid_quantile(grids: torch.Tensor, quantile: float
+                              ) -> torch.Tensor:
+    """Symmetric clamp of each grid [..., nbins, H, W] at the (1 - quantile)
+    quantile of its |values|; a no-op when quantile <= 0."""
+    if quantile <= 0:
+        return grids
+    flat = grids.abs().reshape(*grids.shape[:-3], -1)
+    if flat.shape[-1] > _QUANTILE_MAX_ELEMENTS:
+        raise ValueError(
+            f"voxel_quantile > 0 needs grids of at most 2^24 elements "
+            f"(torch.quantile's limit); one grid here has {flat.shape[-1]}")
+    thr = torch.quantile(flat, 1.0 - quantile, dim=-1)[..., None, None, None]
+    return torch.where(grids.abs() > thr, torch.sign(grids) * thr, grids)
+
+
+def normalize_voxel_grid(grids: torch.Tensor,
+                         norm_type: Optional[str] = "mean_std"
+                         ) -> torch.Tensor:
+    """Normalize each grid [..., nbins, H, W]: 'mean_std' over its nonzero
+    entries (std with Bessel's correction; zeros stay zero), 'max' by its
+    largest |value|, None leaves it."""
+    if norm_type is None:
+        return grids
+    dims = (-3, -2, -1)
+    if norm_type == "max":
+        mx = grids.abs().amax(dim=dims, keepdim=True)
+        return torch.where(mx > 0, grids / torch.clamp(mx, min=1e-12), grids)
+    if norm_type != "mean_std":
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    nz = (grids != 0).to(grids.dtype)
+    n = nz.sum(dim=dims, keepdim=True)
+    mean = (grids * nz).sum(dim=dims, keepdim=True) / torch.clamp(n, min=1.0)
+    var = ((grids - mean).square() * nz).sum(dim=dims, keepdim=True) \
+        / torch.clamp(n - 1.0, min=1.0)
+    std = torch.sqrt(var)
+    normed = torch.where(std > 0, (grids - mean) / std, grids - mean)
+    return torch.where((n > 0) & (nz > 0), normed, grids)
 
 
 def iwe_bilinear_vote(coords_yx: torch.Tensor, weight: torch.Tensor, *,

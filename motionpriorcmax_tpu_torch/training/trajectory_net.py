@@ -5,6 +5,7 @@
   train_step(state, batch, generator, cfg, loss_cfg, num_pos_events) -> logs
   eval_step(state, batch, generator, cfg, loss_cfg, ...)   -> logs + EPE/AE
   predict_flow(state, voxel, cfg)                          -> dense flow
+  voxelize_batch_on_device(cfg, events)                    -> voxel grids
 
 The JAX steps are pure functions of an immutable state; here `train_step`
 updates the model and optimizer of `state` in place and returns the logs.
@@ -25,6 +26,7 @@ from ..device import no_tf32, resolve_device
 from ..losses import FocusLossConfig, focus_loss, get_reconstruction_times
 from ..models.basis_mlp import BasisMLP
 from ..models.unet import UNet
+from ..ops import events as ev_ops
 from ..ops.basis import compute_trajectories, eval_basis
 from ..ops.flow_error import calculate_flow_error
 from ..ops.grids import (coeffs_grid_to_list, dense_flow_from_traj,
@@ -38,9 +40,9 @@ class TrajectoryNetConfig:
     propagate_config).
 
     `unet_widths` is the port's own: the UNet's five widths, the
-    reference's by default; the tests narrow them.  The JAX package's
-    on-device voxelization fields are kept for the YAML and unused (the
-    port voxelizes on the host).
+    reference's by default; the tests narrow them.  `voxel_norm_type` and
+    `voxel_quantile` shape the voxel grids that a step builds on the device
+    for a batch without a host 'voxel' (`voxelize_batch_on_device`).
     """
 
     image_shape: Tuple[int, int] = (480, 640)
@@ -151,17 +153,43 @@ def flow_from_coeffs(cfg: TrajectoryNetConfig, coeff_grid: torch.Tensor,
     return dense
 
 
+def voxelize_batch_on_device(cfg: TrajectoryNetConfig,
+                             events: torch.Tensor) -> torch.Tensor:
+    """[B, M, 6] (y, x, t in [0, 1], p, bin, valid) -> [B, num_bins, H, W]
+    voxel grids on the events' device (JAX: voxelize_batch_on_device with
+    sorted_cell_size=None): the exact f32 trilinear vote (one voxel-vote
+    kernel launch on the card, any event order), then per sample the
+    quantile clamp and the mean_std / max normalization.
+
+    It votes the batch's capacity-truncated events, where the host path
+    votes every event of the window, as in the JAX package."""
+    h, w = cfg.image_shape
+    with torch.no_grad():
+        grids = ev_ops.voxel_grid_from_events(events, num_bins=cfg.num_bins,
+                                              height=h, width=w)
+        grids = ev_ops.clamp_voxel_grid_quantile(grids, cfg.voxel_quantile)
+        return ev_ops.normalize_voxel_grid(grids, cfg.voxel_norm_type)
+
+
 def _step(model: TrajectoryModel, batch: Dict[str, torch.Tensor],
           loss_cfg: FocusLossConfig, times: torch.Tensor,
           num_pos_events: int):
     """voxel -> coefficients -> trajectories -> focus loss, in the model's
-    current mode (train mode updates the BatchNorm statistics)."""
+    current mode (train mode updates the BatchNorm statistics).
+
+    A batch without 'voxel' is voxelized here from its events.  An unset
+    `interp_band_per_bin` becomes True exactly for the linear basis
+    (polynomial, num_basis 1), whose displacement grows linearly from the
+    t = 0 anchor, as in the JAX step."""
     cfg = model.cfg
-    if "voxel" not in batch:
-        raise ValueError("the batch needs a host-voxelized 'voxel' "
-                         "(--device-voxelize is not ported)")
+    if loss_cfg.interp_band_per_bin is None:
+        loss_cfg = dataclasses.replace(loss_cfg, interp_band_per_bin=(
+            cfg.basis_type == "polynomial" and cfg.num_basis == 1))
+    voxel = batch.get("voxel")
+    if voxel is None:
+        voxel = voxelize_batch_on_device(cfg, batch["events"])
     with no_tf32():
-        coeff_grid = model(batch["voxel"])
+        coeff_grid = model(voxel)
         traj = calculate_trajectories(cfg, coeff_grid, times,
                                       loss_cfg.is_needing_offsets,
                                       model.basis)

@@ -226,5 +226,10 @@ def test_config_propagation_and_unported_knn():
         raw = yaml.safe_load(fh)
     assert propagate_config(copy.deepcopy(raw)) == jax_propagate(
         copy.deepcopy(raw))
-    with pytest.raises(NotImplementedError):
-        FocusLossConfig(knn_method="softmax")
+    for method in ("approx", "grid", "grid_approx"):
+        with pytest.raises(NotImplementedError):
+            FocusLossConfig(knn_method=method)
+    # The softmax interpolation is ported for the l2 distance only.
+    FocusLossConfig(knn_method="softmax")
+    with pytest.raises(NotImplementedError, match="l2 only"):
+        FocusLossConfig(knn_method="softmax", dist_norm="l1")
