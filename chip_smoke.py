@@ -69,6 +69,33 @@ Phases, one or more lines each; any failure exits non-zero:
      interpolation" spans
  18. card vs CPU: one f32 train_step of this configuration at the test
      geometry
+  traj-train (RAFT-Spline training, the Tab2L5 experiment config as it
+  stands: B=6, 384x512, 12 iterations, f32, exact-KNN focus loss):
+ 19. kernel vs plain: the corr-window backward kernel (d corr, d cx, d cy)
+     against its plain version at the four level shapes of the B=6 path,
+     f32 and bf16 volumes, with coordinates outside the maps; then the
+     lookup with both kernels (forward and backward) against torch
+     autograd of the plain lookup
+ 20. timing (CUDA events, L2 flushed) per refinement iteration (4
+     launches): the backward kernel, its bytes bound, the plain version,
+     and F.grid_sample's backward (d input and d grid; the reference's
+     sampler, never called by the port); the forward kernel at B=6
+ 21. training: train_traj (the traj-train CLI's loop) at full width with
+     seeded weights on synthetic batches of 2^19 events per sample: 1
+     warm-up + 3 timed steps + 1 under torch.profiler (idle share), then a
+     validation pass and a checkpoint: step ms, events/s, peak memory,
+     launches per step (48 + 48 corr-window, 2 + 2 vote, 1 + 1 gather), a
+     finite loss that moves, context BatchNorm statistics that move, TF32
+     off in the forward and the backward, finite validation metrics
+ 22. the same loop with loss.knn_method softmax (+ 1 + 1 softmax
+     launches), and with the supervised step (gamma 0.8, 5 GT steps)
+ 23. where the time goes, at each of the three points: CUDA events
+     around the encoders, volume, pyramid, lookups, update blocks,
+     upsample, the loss, backward (and the backward kernel in it) and
+     AdamW; the dense d corr accumulation; then torch.profiler over one
+     step
+ 24. card vs CPU: one f32 raft_train_step and one supervised step at the
+     test geometry: loss, gradients, BatchNorm statistics
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -83,6 +110,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -143,19 +171,19 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
 
 
-def level_inputs(torch, t, h2, w2, lvl, seed, dtype):
+def level_inputs(torch, t, h2, w2, lvl, seed, dtype, batch=BATCH):
     """A level volume and window centres like the path's: the query pixel
     scaled to the level plus a flow-like offset, with 5% of the centres far
     outside or just outside the map."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    corr = torch.randn(t, BATCH, Q, h2, w2, device=dev, generator=g).to(dtype)
+    corr = torch.randn(t, batch, Q, h2, w2, device=dev, generator=g).to(dtype)
     qy = (torch.arange(Q, device=dev) // (W // 8)).float()
     qx = (torch.arange(Q, device=dev) % (W // 8)).float()
     scale = 2.0 ** lvl
-    cx = (qx / scale + 3 * torch.randn(t, BATCH, Q, device=dev, generator=g))
-    cy = (qy / scale + 3 * torch.randn(t, BATCH, Q, device=dev, generator=g))
-    far = torch.rand(t, BATCH, Q, device=dev, generator=g) < 0.05
+    cx = (qx / scale + 3 * torch.randn(t, batch, Q, device=dev, generator=g))
+    cy = (qy / scale + 3 * torch.randn(t, batch, Q, device=dev, generator=g))
+    far = torch.rand(t, batch, Q, device=dev, generator=g) < 0.05
     cx = torch.where(far, torch.full_like(cx, -1e6), cx)
     cy = torch.where(far & (qx > 32), torch.full_like(cy, h2 + 0.5), cy)
     return corr.contiguous(), cx.contiguous(), cy.contiguous()
@@ -599,11 +627,15 @@ def time_kernel(torch, label, fn, plain, library, flush, nbytes):
             "bound_by": "bytes", "library_ms": l_ms}
 
 
-def check_close(label, got, want, rel_tol):
+def check_close(label, got, want, rel_tol, tag="flow-kernel-vs-plain"):
+    """max |got - want| against rel_tol x max(1, max |want|); fails above
+    or on a non-finite kernel result."""
+    if not bool(got.isfinite().all()):
+        fail(f"{label}: the kernel left non-finite values")
     err = float((got - want).abs().max().item())
     scale = max(1.0, float(want.abs().max().item()))
     tol = rel_tol * scale
-    print(f"[flow-kernel-vs-plain] {label}: max_abs_diff={err:.3e} "
+    print(f"[{tag}] {label}: max_abs_diff={err:.3e} "
           f"(bound {tol:.3e} = {rel_tol:g} x max(1, max |plain|))")
     if not err <= tol:
         fail(f"{label}: kernel disagrees with plain")
@@ -1190,6 +1222,703 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
         fail(f"the card's train step launched {launches}, not {want}")
 
 
+# ---------------------------------------------------------------------------
+# traj-train: RAFT-Spline training (Tab2L5 experiment), corr-window backward
+# ---------------------------------------------------------------------------
+
+# config/trajectory_inference/val.yaml composed with
+# experiment=raft-spline_evimo2-300ms_ours-selfsup (checkpoint and
+# dataset.path set to 'none'), as a dict: the GPU machine has no yaml
+# (tests/test_torch_raft_train.py checks that the two agree).
+TAB2L5_CONFIG = {
+    "dataset": {"load_voxel_grid": True, "normalize_voxel_grid": True,
+                "path": "none", "photo_augm": False, "return_ev": True,
+                "return_img": True, "name": "evimo2",
+                "extended_voxel_grid": True, "downsample": False,
+                "flow_every_n_ms": 50, "flow_time": 300},
+    "model": {"num_bins": {"context": 41, "correlation": 25},
+              "num_iter": {"train": 12, "test": 12},
+              "correlation": {"use_cosine_sim": False,
+                              "ev": {"target_indices": [8, 16, 24, 32, 40],
+                                     "levels": [1, 1, 1, 1, 4],
+                                     "radius": [4, 4, 4, 4, 4]},
+                              "img": {"levels": 4, "radius": 4}},
+              "hidden": {"dim": 128}, "context": {"dim": 128, "norm": "batch"},
+              "feature": {"dim": 256, "norm": "instance"},
+              "motion": {"dim": 128}, "name": "raft-spline",
+              "curve_type": "BEZIER", "detach_bezier": False,
+              "bezier_degree": 10, "use_boundary_images": False,
+              "use_events": True, "type": "ERAFTPP"},
+    "checkpoint": "none",
+    "hardware": {"num_workers": 4},
+    "batch_size": 8,
+    "training": {"batch_size": 6, "learning_rate": 0.0001,
+                 "weight_decay": 0.0001, "lr_scheduler": {"use": True}},
+    "loss": {"type": "FOCUS", "num_tref": 1, "num_knn": 32, "num_bins": 41,
+             "smooth_weight": 0.06, "lut_superpixel_size": 4,
+             "focus_loss_norm": "l1", "dist_norm": "l2",
+             "scale_iwe_by_dt": True, "mask_image_border": True,
+             "interpolation_scheme": "mean", "smooth_type": "on_flow_to_next",
+             "polarity_aware_batching": True, "patch_size": 4},
+    "run_name": "selfsup_bezier",
+}
+TRAIN_BATCH = TAB2L5_CONFIG["training"]["batch_size"]
+TRAIN_EVENTS = 1 << 19          # per sample, the JAX package's RAFT benchmark
+TRAIN_CAPACITY = 1 << 20        # the CLI's --event-capacity default
+TRAIN_STEPS = 5                 # 1 warm-up + 3 timed + 1 under torch.profiler
+GT_STEPS_SUPERVISED = 5         # MultiFlow: 500 ms at a 100 ms GT cadence
+# The backward kernel against its plain version: both sum in f32, the
+# kernel with fused multiply-adds and another order; a bf16 d corr is that
+# sum rounded once, so the two may sit one bf16 step apart (a step is at
+# most 2^-7 of the value: 8 significant bits).
+TOL_BWD = 1e-5                  # relative to max(1, max |plain|)
+TOL_BWD_BF16 = 2.0 ** -7        # bf16 d corr, relative likewise
+CORR_KERNELS = ("corr_window_lookup", "corr_window_lookup_bwd")
+# Launches per train step and in the val pass (one batch of 4) of the
+# traj-train paths: 12 iterations x 4 pyramid levels each way.
+TRAJ_STEP = {"corr_window_lookup": 48, "corr_window_lookup_bwd": 48,
+             **EXACT_STEP}
+TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 48}
+TRAJ_SOFTMAX_STEP = {**TRAJ_STEP, "softmax_interp_fwd": 1,
+                     "softmax_interp_bwd": 1}
+TRAJ_SUPERVISED_STEP = {**TRAJ_VAL, "corr_window_lookup_bwd": 48}
+
+
+def traj_wrappers():
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    return {"corr_window_lookup": cw.corr_window_lookup,
+            "corr_window_lookup_bwd": cw.corr_window_lookup_bwd,
+            **kernel_wrappers()}
+
+
+def plain_pyramid_lookup(torch, pyramid, coords):
+    """lookup_corr_pyramid through the plain window lookup, differentiable
+    by torch autograd (gather, floor and the bilinear combine)."""
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    t0, b, _, h1, w1 = coords.shape
+    outs = []
+    for lvl, (idx, corr_l) in enumerate(pyramid):
+        sel = torch.stack([coords[i] for i in idx]) / (2.0 ** lvl)
+        h2, w2 = corr_l.shape[-2:]
+        feat = cw.window_lookup_plain(corr_l.reshape(-1, h2, w2),
+                                      sel[:, :, 0].reshape(-1),
+                                      sel[:, :, 1].reshape(-1), RADIUS)
+        outs.append(feat.reshape(len(idx), b, h1 * w1, K).permute(1, 0, 3, 2)
+                    .reshape(b, len(idx) * K, h1, w1))
+    return torch.cat(outs, dim=1)
+
+
+def phase_bwd_kernel(torch):
+    """Phase 19: corr_window_lookup_bwd against its plain version at the
+    four level shapes of the B=6 training path, f32 and bf16 volumes; then
+    the whole lookup, kernels forward and backward, against torch autograd
+    of the plain lookup.  Returns (max error f32, max error bf16 d corr)."""
+    from motionpriorcmax_tpu_torch.models.raft_spline.corr import (
+        build_corr_pyramid, lookup_corr_pyramid)
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    b, tag = TRAIN_BATCH, "bwd-kernel-vs-plain"
+    gen = torch.Generator(device="cuda").manual_seed(310)
+    c_total = sum(t for t, _, _ in LEVELS) * K
+    g = torch.randn(b, c_total, H // 8, W // 8, device="cuda", generator=gen)
+    err32 = err16 = 0.0
+    chan_off = 0
+    for lvl, (t, h2, w2) in enumerate(LEVELS):
+        for dtype in (torch.float32, torch.bfloat16):
+            corr, cx, cy = level_inputs(torch, t, h2, w2, lvl, 300 + lvl,
+                                        dtype, b)
+            got = cw.corr_window_lookup_bwd(corr, cx, cy, RADIUS, g, chan_off)
+            want = cw.corr_window_lookup_bwd_plain(corr, cx, cy, RADIUS, g,
+                                                   chan_off)
+            torch.cuda.synchronize()
+            name = f"level {lvl + 1} N={t * b * Q} map {h2}x{w2} {str(dtype)[6:]}"
+            bf16 = dtype == torch.bfloat16
+            e = check_close(f"{name} d corr", got[0].float(),
+                            want[0].float(), TOL_BWD_BF16 if bf16 else TOL_BWD,
+                            tag)
+            if bf16:
+                err16 = max(err16, e)
+            else:
+                err32 = max(err32, e)
+            for label, a, w in (("d cx", got[1], want[1]),
+                                ("d cy", got[2], want[2])):
+                err32 = max(err32, check_close(f"{name} {label}", a, w,
+                                               TOL_BWD, tag))
+            del corr, cx, cy, got, want
+        chan_off += t * K
+    del g
+    torch.cuda.empty_cache()
+
+    # The lookup over a B=6 Tab2L5 pyramid: CorrPyramidLookup (kernels both
+    # ways) against autograd of the plain lookup, same cotangent.
+    corr = torch.randn(5, b, Q, H // 8, W // 8, device="cuda", generator=gen)
+    grid_y, grid_x = torch.meshgrid(torch.arange(H // 8, device="cuda"),
+                                    torch.arange(W // 8, device="cuda"),
+                                    indexing="ij")
+    coords = (torch.stack([grid_x, grid_y]).float()[None, None]
+              + 4 * torch.randn(5, b, 2, H // 8, W // 8, device="cuda",
+                                generator=gen))
+    g = torch.randn(b, c_total, H // 8, W // 8, device="cuda", generator=gen)
+    results, times = {}, {}
+    for kind, fn in (("kernels", lookup_corr_pyramid),
+                     ("plain autograd",
+                      lambda p, c, r: plain_pyramid_lookup(torch, p, c))):
+        leaf = corr.clone().requires_grad_()
+        crd = coords.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(build_corr_pyramid(leaf, (1, 1, 1, 1, 4)), crd, RADIUS)
+        out.backward(g)
+        torch.cuda.synchronize()
+        times[kind] = (time.perf_counter() - t0) * 1e3
+        results[kind] = (out.detach(), leaf.grad, crd.grad)
+        del leaf, crd, out
+    for i, label in enumerate(("features", "d volume", "d coords")):
+        err32 = max(err32, check_close(
+            f"lookup B={b} Tab2L5 pyramid, kernels vs plain autograd: "
+            f"{label}", results["kernels"][i], results["plain autograd"][i],
+            TOL_BWD, tag))
+    print(f"[{tag}] lookup forward + backward (one iteration, 4 levels, "
+          f"first call): kernels {times['kernels']:.1f} ms, plain autograd "
+          f"{times['plain autograd']:.1f} ms")
+    del corr, coords, g, results
+    torch.cuda.empty_cache()
+    return err32, err16
+
+
+def phase_bwd_timing(torch):
+    """Phase 20: per level and per refinement iteration (4 launches), CUDA
+    events, L2 flushed: the backward kernel, its bytes bound, its plain
+    version, and F.grid_sample's backward (d input and d grid) for the same
+    sampling (align_corners=True, zero padding)."""
+    from torch.nn import functional as F
+
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    b = TRAIN_BATCH
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(320)
+    c_total = sum(t for t, _, _ in LEVELS) * K
+    g = torch.randn(b, c_total, H // 8, W // 8, device="cuda", generator=gen)
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                  fwd_ms=0.0, fwd_bound_ms=0.0)
+    chan_off = 0
+    for lvl, (t, h2, w2) in enumerate(LEVELS):
+        corr, cx, cy = level_inputs(torch, t, h2, w2, lvl, 400 + lvl,
+                                    torch.float32, b)
+        n = corr.shape[0] * b * Q
+        off = chan_off
+        slab = torch.empty(b, t * K, H // 8, W // 8, device="cuda")
+        f_ms = time_ms(torch, lambda: cw.corr_window_lookup(
+            corr, cx, cy, RADIUS, slab, 0), flush)
+        f_bound = needed_bytes(torch, corr, cx, cy) / H100_BYTES_PER_S * 1e3
+        k_ms = time_ms(torch, lambda: cw.corr_window_lookup_bwd(
+            corr, cx, cy, RADIUS, g, off), flush)
+        p_ms = time_ms(torch, lambda: cw.corr_window_lookup_bwd_plain(
+            corr, cx, cy, RADIUS, g, off), flush, reps=3, warmup=1)
+        d = torch.arange(-RADIUS, RADIUS + 1, device="cuda",
+                         dtype=torch.float32)
+        side = 2 * RADIUS + 1
+        gx = (cx.reshape(n, 1, 1) + d[None, None, :]).expand(n, side, side)
+        gy = (cy.reshape(n, 1, 1) + d[None, :, None]).expand(n, side, side)
+        grid = torch.stack([2 * gx / (w2 - 1) - 1, 2 * gy / (h2 - 1) - 1],
+                           dim=-1).contiguous().requires_grad_()
+        img = corr.reshape(n, 1, h2, w2).detach().requires_grad_()
+        out = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        gout = torch.randn_like(out)
+        l_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (img, grid), gout, retain_graph=True), flush, reps=5,
+            warmup=1)
+        # Bytes: the in-range window values, the level's cotangent slab and
+        # coordinates read once; d corr (the whole maps), d cx, d cy written.
+        nbytes = (needed_bytes(torch, corr, cx, cy) + n * h2 * w2 * 4 + n * 8)
+        flops = n * K * 18              # 4 weighted taps + 2 differences
+        bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+        print(f"[bwd-timing] level {lvl + 1} N={n} map {h2}x{w2} f32: "
+              f"kernel={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
+              f"({nbytes / 1e6:.1f} MB, bytes-bound) plain={p_ms * 1e3:.1f} us"
+              f" grid_sample backward={l_ms * 1e3:.1f} us; forward kernel="
+              f"{f_ms * 1e3:.1f} us (bound {f_bound * 1e3:.1f} us)")
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
+                       ("library_ms", l_ms), ("fwd_ms", f_ms),
+                       ("fwd_bound_ms", f_bound)):
+            totals[key] += v
+        chan_off += t * K
+        del corr, cx, cy, grid, img, out, gout, gx, gy, slab
+        torch.cuda.empty_cache()
+    del flush, g
+    torch.cuda.empty_cache()
+    print(f"[bwd-timing] one refinement iteration's backward (4 launches), "
+          f"B={b}: kernel={totals['ms'] * 1e3:.1f} us "
+          f"bound={totals['bound_ms'] * 1e3:.1f} us "
+          f"plain={totals['plain_ms'] * 1e3:.1f} us grid_sample backward="
+          f"{totals['library_ms'] * 1e3:.1f} us; the forward kernel at these "
+          f"shapes {totals['fwd_ms'] * 1e3:.1f} us (bound "
+          f"{totals['fwd_bound_ms'] * 1e3:.1f} us)")
+    return totals
+
+
+def traj_samples(seed, n, h, w, nbins_total, events=0, gt_steps=6,
+                 flow_valid=True):
+    """EVIMO2-shaped samples from a numpy seed: a sparse normalized voxel
+    grid; with `events`, that many raw events (uniform positions in the
+    loss image, sorted times, random polarity, the 41-bin index of the
+    EVIMO2 reader) split into polarity halves; GT flow at `gt_steps`
+    timestamps and, with `flow_valid`, a validity mask."""
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(0, 1, TAB2L5_CONFIG["model"]["num_bins"]["context"]
+                        + 1)
+    samples = []
+    for _ in range(n):
+        ev_repr = rng.standard_normal((nbins_total, h, w), dtype=np.float32)
+        ev_repr *= rng.random((nbins_total, h, w), dtype=np.float32) < 0.3
+        s = {"ev_repr": ev_repr,
+             "flow": 5 * rng.standard_normal((gt_steps, 2, h, w),
+                                             dtype=np.float32),
+             "flow_timestamps": np.linspace(0, 1, gt_steps + 1)[1:].astype(
+                 np.float32)}
+        if flow_valid:
+            s["flow_valid"] = rng.random((gt_steps, h, w)) > 0.2
+        if events:
+            t = np.sort(rng.random(events))
+            ev = np.stack([rng.random(events) * (h - 1),
+                           rng.random(events) * (w - 1), t,
+                           rng.integers(0, 2, events),
+                           np.clip(np.searchsorted(edges, t) - 1, 0, None)],
+                          -1).astype(np.float32)
+            s["pos_events"] = ev[ev[:, 3] == 1]
+            s["neg_events"] = ev[ev[:, 3] == 0]
+        samples.append(s)
+    return samples
+
+
+def phase_traj_batches():
+    """The traj-train host batches: B=6 self-supervised (2^19 events per
+    sample, polarity-packed into capacity 2^20, LUT-cell-sorted) and
+    supervised (5 GT steps), and 4 validation samples."""
+    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
+
+    nbt = RAFTSplineConfig().nbins_total
+    loss = TAB2L5_CONFIG["loss"]
+    t0 = time.perf_counter()
+    selfsup = collate_fixed_capacity(
+        traj_samples(51, TRAIN_BATCH, H, W, nbt, events=TRAIN_EVENTS),
+        TRAIN_CAPACITY, polarity_aware=True,
+        lut_cell_sort_params=((H, W), loss["num_bins"],
+                              loss["lut_superpixel_size"]))
+    t_collate = time.perf_counter() - t0
+    supervised = collate_fixed_capacity(
+        traj_samples(52, TRAIN_BATCH, H, W, nbt,
+                     gt_steps=GT_STEPS_SUPERVISED, flow_valid=False),
+        TRAIN_CAPACITY)
+    val = traj_samples(53, 4, H, W, nbt)
+    valid = int(selfsup["events"][..., 5].sum())
+    print(f"[traj-batch] B={TRAIN_BATCH} {H}x{W}, {nbt} bins: "
+          f"{TRAIN_EVENTS} events per sample in capacity {TRAIN_CAPACITY} "
+          f"({valid} valid), events + collate {t_collate:.2f} s (one "
+          f"thread); supervised batch with {GT_STEPS_SUPERVISED} GT steps; 4 "
+          f"validation samples")
+    return selfsup, supervised, val
+
+
+def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
+                     want, tag, supervised=False):
+    """traj-train's loop (training/loop.py::train_traj, the CLI's) at full
+    width with seeded weights: 1 warm-up + 3 timed steps, 1 step under
+    torch.profiler (the idle share), then the validation pass and a
+    checkpoint.  Fails unless every step launches `want` and the val pass
+    TRAJ_VAL, the loss is finite and moves, the context encoder's BatchNorm
+    statistics move, TF32 is off in the forward and the backward, the
+    validation metrics are finite and the checkpoint is written.  Returns
+    the kernels' launch counts over the run."""
+    import functools
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionpriorcmax_tpu_torch.cli.main import (run_traj_validation,
+                                                    traj_train_configs)
+    from motionpriorcmax_tpu_torch.training.loop import train_traj
+    from motionpriorcmax_tpu_torch.training.raft_spline import \
+        create_raft_train_state
+
+    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W), TRAIN_STEPS)
+    state = create_raft_train_state(cfg, tc, "cuda",
+                                    torch.Generator().manual_seed(0))
+    model = state.model
+    bn_before = {n: b.clone() for n, b in model.cnet.named_buffers()
+                 if "running" in n}
+    seen_fwd, seen_bwd = set(), set()
+    hooks = [getattr(model, name).register_forward_pre_hook(
+        lambda mod, inp: seen_fwd.add(tf32_flags(torch)))
+        for name in ("fnet_ev", "cnet", "update_block")]
+    # Gradient hooks run inside the backward (the autograd engine's thread).
+    for p in (model.fnet_ev.conv1.weight, model.cnet.conv1.weight,
+              model.update_block.encoder.convc1.weight):
+        hooks.append(p.register_hook(
+            lambda grad: seen_bwd.add(tf32_flags(torch))))
+    fns = traj_wrappers()
+    marks = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(),
+                      {k: f.launches for k, f in fns.items()}))
+
+    def batches():
+        for i in range(TRAIN_STEPS):
+            mark()
+            if i == TRAIN_STEPS - 1:
+                prof.__enter__()
+            yield train_batch
+
+    ts = tuple(float(t) for t in val_samples[0]["flow_timestamps"])
+    val_iters = cfg_tree["model"]["num_iter"]["test"]
+
+    def validate(model):
+        mark()                          # the end of the last step
+        prof.__exit__(None, None, None)
+        return run_traj_validation(model, val_samples, len(val_samples), ts,
+                                   iters=val_iters)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in fns.values():
+            f.launches = 0
+        train_traj(state, batches(), workdir, max_steps=TRAIN_STEPS,
+                   loss_cfg=None if supervised else loss_cfg,
+                   num_pos_events=train_batch.get("num_pos_events", -1),
+                   log_every=1, val_every=TRAIN_STEPS, validate=validate)
+        launches = {k: f.launches for k, f in fns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with open(f"{workdir}/scalars.jsonl") as fh:
+            recs = [json.loads(line) for line in fh]
+        ckpts = sorted(p for p in os.listdir(f"{workdir}/checkpoints")
+                       if p.endswith(".pt"))
+    for h in hooks:
+        h.remove()
+    steps = [(t1 - t0, {k: c1[k] - c0[k] for k in c0})
+             for (t0, c0), (t1, c1) in zip(marks[:-1], marks[1:])]
+    losses = [r["train_losses/total"] for r in recs
+              if "train_losses/total" in r]
+    val = next(r for r in recs if "val/epe" in r)
+    for i, (dt, counts) in enumerate(steps):
+        note = (" (warm-up)" if i == 0 else " (torch.profiler)"
+                if i == TRAIN_STEPS - 1 else "")
+        print(f"[{tag}] step {i}{note}: {dt * 1e3:.1f} ms (host batch to "
+              f"logged loss), loss {losses[i]:.6f}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    if any(counts != want for _, counts in steps):
+        fail(f"expected {want} launches per step, got {[c for _, c in steps]}")
+    in_val = {k: launches[k] - sum(c[k] for _, c in steps) for k in launches}
+    if in_val != TRAJ_VAL:
+        fail(f"expected {TRAJ_VAL} launches in the val pass, got {in_val}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train losses {losses}")
+    if len(set(losses)) < 2:
+        fail(f"the loss did not move: {losses}")
+    bad = [k for k, v in val.items() if k != "step" and not np.isfinite(v)]
+    if bad:
+        fail(f"non-finite validation metrics {bad[:5]}")
+    if not ckpts:
+        fail("no checkpoint written")
+    moved = sum(not torch.equal(b, bn_before[n])
+                for n, b in model.cnet.named_buffers() if n in bn_before)
+    if not moved:
+        fail("the context encoder's BatchNorm statistics did not move")
+    if seen_fwd != {(False, False)} or seen_bwd != {(False, False)}:
+        fail(f"TF32 flags (matmul, cudnn): forward {seen_fwd}, backward "
+             f"{seen_bwd}")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    prof_wall = steps[-1][0] * 1e3
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    idle = (f"{1 - busy / prof_wall:.3f} ({busy:.1f} ms busy of "
+            f"{prof_wall:.1f} ms)" if kernels else "not measured (no device "
+            "time in the trace)")
+    timed = [dt for dt, _ in steps[1:-1]]
+    mean = float(np.mean(timed))
+    b = train_batch["ev_repr"].shape[0]
+    if supervised:
+        rate = f"{b / mean:.3f} samples/s"
+        what = (f"supervised, gamma 0.8, {train_batch['flow'].shape[1]} GT "
+                "steps")
+    else:
+        m = train_batch["events"].shape[1]
+        valid = float(train_batch["events"][..., 5].sum())
+        rate = (f"{b * m / mean:.4g} events/s padded ({valid / mean:.4g} "
+                "valid)")
+        what = f"knn_method {loss_cfg.knn_method}, capacity {m}"
+    print(f"[{tag}] Tab2L5 B={b} {H}x{W} f32, {cfg.iters} iterations, {what}: "
+          f"step mean {mean * 1e3:.1f} ms over {len(timed)} steps "
+          f"({', '.join(f'{x * 1e3:.1f}' for x in timed)}), {rate}, peak "
+          f"memory {peak / 2**30:.2f} GiB, idle share {idle}; context BN "
+          f"buffers moved {moved}/{len(bn_before)}; TF32 (matmul, cudnn) "
+          f"forward {sorted(seen_fwd)} backward {sorted(seen_bwd)}; val pass "
+          f"({len(val_samples)} samples, {val_iters} iterations) "
+          f"val/masked_TEPE {val['val/masked_TEPE']:.4f} (launches "
+          f"{ {k: v for k, v in in_val.items() if v} }); checkpoints {ckpts};"
+          f" card {smi_line}")
+    return launches
+
+
+def phase_traj_breakdown(torch, cfg_tree, host_batch, tag="traj-breakdown",
+                         supervised=False):
+    """Phase 23: where one train step's time goes, with the batch on the
+    card: CUDA events around the encoders, volume, pyramid, the refinement
+    loop's lookups and update blocks, upsample, the loss (the focus loss,
+    or the supervised step's curve evaluation), backward (and the backward
+    kernel inside it) and AdamW; for the exact-KNN point the dense d corr
+    accumulation timed apart; then torch.profiler over one step."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionpriorcmax_tpu_torch.cli.main import traj_train_configs
+    from motionpriorcmax_tpu_torch.models.raft_spline import raft
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+    from motionpriorcmax_tpu_torch.training import raft_spline as trs
+    from motionpriorcmax_tpu_torch.training.loop import to_device
+
+    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W), TRAIN_STEPS)
+    state = trs.create_raft_train_state(cfg, tc, "cuda",
+                                        torch.Generator().manual_seed(0))
+    keys = (("ev_repr", "flow", "flow_timestamps") if supervised
+            else ("ev_repr", "events", "lut_cell_ends"))
+    batch = to_device({k: host_batch[k] for k in keys}, torch.device("cuda"))
+    npos = host_batch.get("num_pos_events", -1)
+    gen = torch.Generator().manual_seed(1)
+    spans = defaultdict(list)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def wrap(name, fn):
+        def inner(*a, **k):
+            s = event()
+            res = fn(*a, **k)
+            spans[name].append((s, event()))
+            return res
+        inner.launches = getattr(fn, "launches", 0)
+        return inner
+
+    loss_name = "curve at the GT times" if supervised else \
+        "focus loss"
+    targets = [(raft, "compute_corr_volume", "corr volume"),
+               (raft, "build_corr_pyramid", "pyramid"),
+               (raft, "lookup_corr_pyramid", "lookup (forward kernels)"),
+               (raft, "cvx_upsample", "upsample"),
+               (trs, "cvx_upsample", "upsample"),
+               (trs, "curve_flow_from_reference" if supervised
+                else "curve_focus_loss", loss_name),
+               (cw, "corr_window_lookup_bwd", "backward kernel"),
+               (torch.Tensor, "backward", "backward"),
+               (state.optimizer, "step", "AdamW")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    starts = defaultdict(list)
+    hooks = []
+    names = {"fnet_ev": "feature encoder", "cnet": "context encoder",
+             "update_block": "update blocks"}
+    for attr, name in names.items():
+        mod = getattr(state.model, attr)
+        hooks.append(mod.register_forward_pre_hook(
+            lambda m, i, name=name: starts[name].append(event())))
+        hooks.append(mod.register_forward_hook(
+            lambda m, i, o, name=name: spans[name].append(
+                (starts[name].pop(), event()))))
+
+    def step():
+        spans.clear()
+        t0 = time.perf_counter()
+        start = event()
+        if supervised:
+            trs.raft_supervised_train_step(state, batch)
+        else:
+            trs.raft_train_step(state, batch, gen, loss_cfg, npos)
+        end = event()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        parts = {k: sum(s.elapsed_time(e) for s, e in v)
+                 for k, v in spans.items()}
+        total = start.elapsed_time(end)
+        # The backward kernel runs inside the backward span.
+        parts["rest"] = total - sum(v for k, v in parts.items()
+                                    if k != "backward kernel")
+        return wall, total, parts
+
+    for mod, attr, name in targets:
+        setattr(mod, attr, wrap(name, getattr(mod, attr)))
+    try:
+        with warnings.catch_warnings():
+            # The schedule warns that the wrapped optimizer.step was
+            # replaced after it was built; the wrapper calls it unchanged.
+            warnings.simplefilter("ignore", UserWarning)
+            torch.cuda.reset_peak_memory_stats()
+            step()                                          # warm-up
+            runs = [step() for _ in range(3)]
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        for mod, attr, fn in originals:
+            if mod is state.optimizer:
+                del mod.step
+            else:
+                setattr(mod, attr, fn)
+        for h in hooks:
+            h.remove()
+    dev_ms = float(np.median([r[1] for r in runs]))
+    point = ("supervised, gamma 0.8" if supervised
+             else f"knn_method {loss_cfg.knn_method}")
+    print(f"[{tag}] {point}, batch on the card, 3 steps after 1 warm-up: "
+          f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
+          f"CUDA events median {dev_ms:.1f} ms, peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    for name in ("feature encoder", "context encoder", "corr volume",
+                 "pyramid", "lookup (forward kernels)", "update blocks",
+                 "upsample", loss_name, "backward", "backward kernel",
+                 "AdamW", "rest"):
+        med = float(np.median([r[2].get(name, 0.0) for r in runs]))
+        note = " (inside backward)" if name == "backward kernel" else ""
+        print(f"[{tag}]   {name:26s} {med:9.2f} ms  "
+              f"{100 * med / dev_ms:5.1f}%{note}")
+
+    if not supervised and loss_cfg.knn_method == "exact":
+        # The dense cotangent: each iteration's backward returns a level-1
+        # d corr [5, B, 3072, 48, 64] that autograd adds into the volume's.
+        a = torch.zeros(5, TRAIN_BATCH, Q, H // 8, W // 8, device="cuda")
+        bvol = torch.ones_like(a)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        add_ms = time_ms(torch, lambda: a.add_(bvol), flush, reps=5, warmup=1)
+        print(f"[{tag}] d corr accumulation: one add of two "
+              f"{a.numel() * 4 / 1e9:.2f} GB level-1 cotangents "
+              f"{add_ms:.2f} ms; x {cfg.iters - 1} per step = "
+              f"{add_ms * (cfg.iters - 1):.1f} ms")
+        del a, bvol, flush
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _, _ = step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"[{tag}] torch.profiler recorded no device time")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[{tag}] torch.profiler, one step: kernels busy {busy_ms:.1f} ms "
+          f"of {wall:.1f} ms wall, idle share {1 - busy_ms / wall:.3f}, "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:12]:
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:5d}x  {e.key[:80]}")
+    for e in kernels:
+        if any(k in e.key for k in ("corr_window", "iwe_vote", "lut_gather",
+                                    "lut_segsum", "softmax_interp")):
+            print(f"[{tag}]   port kernel {e.key[:60]}: "
+                  f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
+                  "launches")
+
+
+def phase_traj_card_vs_cpu(torch):
+    """Phase 24: one f32 raft_train_step and one supervised step at the
+    test geometry, on the CPU (plain versions) and on the card (kernels),
+    same weights, batch and t_ref: loss, gradients, BN statistics."""
+    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
+    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
+    from motionpriorcmax_tpu_torch.training import raft_spline as trs
+    from motionpriorcmax_tpu_torch.training.loop import to_device
+
+    h = w = 32
+    cfg = RAFTSplineConfig(nbins_context=5, nbins_correlation=3,
+                           bezier_degree=2, ev_target_indices=(2, 4),
+                           ev_levels=(1, 2), iters=2)
+    loss_cfg = FocusLossConfig(image_shape=(h, w), num_bins=5, num_knn=4,
+                               smooth_weight=0.01, lut_superpixel_size=4,
+                               smooth_type="on_flow_to_next")
+    rng = np.random.default_rng(61)
+    samples = []
+    for _ in range(2):
+        t = np.sort(rng.random(1500))
+        ev = np.stack([rng.random(1500) * (h - 1), rng.random(1500) * (w - 1),
+                       t, rng.integers(0, 2, 1500),
+                       np.clip((t * 5).astype(np.int64), 0, 4)], -1
+                      ).astype(np.float32)
+        samples.append({"pos_events": ev[ev[:, 3] == 1],
+                        "neg_events": ev[ev[:, 3] == 0],
+                        "ev_repr": rng.standard_normal(
+                            (cfg.nbins_total, h, w), dtype=np.float32)})
+    selfsup = collate_fixed_capacity(samples, 2048, True,
+                                     lut_cell_sort_params=((h, w), 5, 4))
+    supervised = {"ev_repr": selfsup["ev_repr"],
+                  "flow": 2 * rng.standard_normal((2, 3, 2, h, w),
+                                                  dtype=np.float32),
+                  "flow_timestamps": np.tile(np.float32([1 / 3, 2 / 3, 1]),
+                                             (2, 1)),
+                  "flow_valid": rng.random((2, 3, h, w)) > 0.2}
+    times = torch.tensor([0.37, 0.1, 0.3, 0.5, 0.7, 0.9])
+    levels = max(cfg.ev_levels) * cfg.iters
+    fns = traj_wrappers()
+    for kind, host, want in (
+            ("raft_train_step", selfsup,
+             {**{k: 0 for k in fns}, "corr_window_lookup": levels,
+              "corr_window_lookup_bwd": levels, "iwe_vote_fwd": 2,
+              "iwe_vote_bwd": 2, "lut_gather_fwd": 1, "lut_segsum_bwd": 1}),
+            ("raft_supervised_train_step", supervised,
+             {**{k: 0 for k in fns}, "corr_window_lookup": levels,
+              "corr_window_lookup_bwd": levels})):
+        results = {}
+        before = {k: f.launches for k, f in fns.items()}
+        for dev in ("cpu", "cuda"):
+            state = trs.create_raft_train_state(
+                cfg, trs.RAFTTrainConfig(), dev,
+                torch.Generator().manual_seed(1))
+            batch = to_device(host, torch.device(dev))
+            if kind == "raft_train_step":
+                logs = trs.raft_train_step(state, batch, None, loss_cfg,
+                                           host["num_pos_events"],
+                                           times=times)
+            else:
+                logs = trs.raft_supervised_train_step(state, batch)
+            results[dev] = (float(logs["train_losses/total"]),
+                            {n: p.grad.detach().cpu() for n, p in
+                             state.model.named_parameters()},
+                            {n: b.detach().cpu() for n, b in
+                             state.model.named_buffers() if "running" in n})
+        launches = {k: fns[k].launches - before[k] for k in fns}
+        (l_c, g_c, s_c), (l_g, g_g, s_g) = results["cpu"], results["cuda"]
+        top = max(float(g.abs().max()) for g in g_c.values())
+        loss_rel = abs(l_g - l_c) / abs(l_c)
+        # A gradient that a norm cancels is zero up to rounding: it is held
+        # to 1e-2 of the model's largest gradient, not to its own.
+        grad_rel = max(float((g_g[n] - g_c[n]).abs().max()
+                             / max(float(g_c[n].abs().max()), 1e-2 * top))
+                       for n in g_c)
+        bn_rel = max(float((s_g[n] - s_c[n]).abs().max()
+                           / s_c[n].abs().max().clamp(min=1e-30))
+                     for n in s_c)
+        print(f"[traj-card-vs-cpu] f32 {kind} {h}x{w} B=2, {cfg.iters} "
+              f"iterations: loss rel diff {loss_rel:.3e} (bound "
+              f"{TOL_TRAIN_LOSS:g}), gradients max |diff| / max |grad| per "
+              f"tensor {grad_rel:.3e} (bound {TOL_TRAIN_GRAD:g}), BN "
+              f"statistics {bn_rel:.3e} (bound {TOL_TRAIN_BN:g}); card "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+        if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
+                and bn_rel <= TOL_TRAIN_BN):
+            fail(f"card and CPU {kind} disagree")
+        if launches != want:
+            fail(f"the card's {kind} launched {launches}, not {want}")
+
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -1295,6 +2024,50 @@ def main() -> int:
                            SOFTMAX_STEP, tag="softmax-card-vs-cpu")
     print(f"[done] softmax flow-train phases "
           f"{time.perf_counter() - t_soft:.1f} s")
+
+    # traj-train: RAFT-Spline training, the Tab2L5 experiment
+    t_traj = time.perf_counter()
+    bwd_err32, bwd_err16 = phase_bwd_kernel(torch)
+    bwd_totals = phase_bwd_timing(torch)
+    selfsup, supervised, val_samples = phase_traj_batches()
+    traj_launches = phase_traj_train(torch, TAB2L5_CONFIG, selfsup,
+                                     val_samples, smi_line, TRAJ_STEP,
+                                     "traj-train")
+    torch.cuda.empty_cache()
+    phase_traj_train(torch, {**TAB2L5_CONFIG, "loss": {
+        **TAB2L5_CONFIG["loss"], "knn_method": "softmax"}}, selfsup,
+        val_samples, smi_line, TRAJ_SOFTMAX_STEP, "traj-train-softmax")
+    torch.cuda.empty_cache()
+    phase_traj_train(torch, TAB2L5_CONFIG, supervised, val_samples, smi_line,
+                     TRAJ_SUPERVISED_STEP, "traj-train-supervised",
+                     supervised=True)
+    del val_samples
+    torch.cuda.empty_cache()
+    phase_traj_breakdown(torch, TAB2L5_CONFIG, selfsup)
+    torch.cuda.empty_cache()
+    phase_traj_breakdown(torch, {**TAB2L5_CONFIG, "loss": {
+        **TAB2L5_CONFIG["loss"], "knn_method": "softmax"}}, selfsup,
+        tag="traj-breakdown-softmax")
+    torch.cuda.empty_cache()
+    phase_traj_breakdown(torch, TAB2L5_CONFIG, supervised,
+                         tag="traj-breakdown-supervised", supervised=True)
+    del selfsup, supervised
+    torch.cuda.empty_cache()
+    phase_traj_card_vs_cpu(torch)
+    print(f"[done] traj-train phases {time.perf_counter() - t_traj:.1f} s")
+    kernels.append({
+        "name": "corr_window_lookup_bwd", "route": "cuda",
+        "source": "motionpriorcmax_tpu_torch/csrc/corr_window.cu",
+        "replaces": "motionpriorcmax_tpu/ops/pallas/corr_window.py:155",
+        "launches": traj_launches["corr_window_lookup_bwd"],
+        "max_abs_err": bwd_err32, "bf16_max_abs_err": bwd_err16,
+        "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
+        "bound_ms": bwd_totals["bound_ms"], "bound_by": "bytes",
+        "library_ms": bwd_totals["library_ms"],
+        "work": "one refinement iteration's backward: levels 1-4, B=6, "
+                "384x512, f32 volume (library: F.grid_sample's backward, "
+                "d input and d grid)",
+    })
     for kname in FLOW_KERNELS + SOFTMAX_KERNELS:
         source, replaces = FLOW_SOURCES[kname]
         runs = soft_launches if kname in SOFTMAX_KERNELS else flow_launches

@@ -9,13 +9,16 @@ its layout so each module's counterpart is easy to find:
   csrc/         the kernels' CUDA C++ sources
   models/       nn.Modules in NCHW (RAFT-Spline, the flow UNet)
   losses/       the focus (contrast-maximization) loss
-  training/     train / validation steps, the flow-training loop, model
-                construction, checkpoints and weight conversion
+  training/     train / validation steps, the flow and trajectory
+                training loops, model construction, checkpoints and
+                weight conversion
   metrics/      masked flow / trajectory metrics and the metric bank
   config/       Hydra-style YAML composition
-  data/         host-side dataset readers (DSEC, EVIMO2), collate, loader
+  data/         host-side dataset readers (DSEC, EVIMO2, MultiFlow),
+                augmentation, collate, loader
   utils/        the 16-bit PNG reader
-  cli/          `python -m motionpriorcmax_tpu_torch.cli flow-train|traj-val`
+  cli/          `python -m motionpriorcmax_tpu_torch.cli flow-train|traj-val|
+                traj-train`
 
 Entry points run on CUDA unless the caller passes device="cpu".  This
 package imports torch and numpy only, never JAX or the JAX package.

@@ -5,6 +5,9 @@
       [--log-every N] [--device cuda|cpu]
   python -m motionpriorcmax_tpu_torch.cli traj-val --config-dir ... \
       [--device cuda|cpu] [overrides]
+  python -m motionpriorcmax_tpu_torch.cli traj-train --config-dir ... \
+      [--workdir ...] [--max-steps N] [--loss selfsup|supervised] \
+      [--val-every N] [--device cuda|cpu] [overrides]
 """
 
 from .main import main

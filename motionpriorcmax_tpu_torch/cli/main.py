@@ -4,8 +4,10 @@ flow-train: self-supervised DSEC flow training (UNet + focus loss), with
 the JAX CLI's --config / --workdir / --ckp_path / --event-capacity /
 --log-every / --device-voxelize (voxel grids built inside the step from the
 batch's events instead of by the loader), plus --device.
-traj-val: RAFT-Spline trajectory validation on EVIMO2, with the JAX CLI's
-arguments, Hydra-style overrides and printout, plus --device.
+traj-val: RAFT-Spline trajectory validation on EVIMO2 or MultiFlow, with
+the JAX CLI's arguments, Hydra-style overrides and printout, plus --device.
+traj-train: RAFT-Spline training, self-supervised or supervised, with the
+JAX CLI's arguments except --mesh and the multi-host flags, plus --device.
 """
 
 from __future__ import annotations
@@ -94,8 +96,9 @@ def cmd_flow_train(args) -> int:
     return 0
 
 
-def raft_config_from_tree(mc: dict):
-    """RAFTSplineConfig from the composed `model` config section."""
+def raft_config_from_tree(mc: dict, phase: str = "test"):
+    """RAFTSplineConfig from the composed `model` config section, with the
+    iteration count of `phase` ('test' or 'train', model.num_iter)."""
     from ..models.raft_spline import RAFTSplineConfig
 
     return RAFTSplineConfig(
@@ -107,9 +110,52 @@ def raft_config_from_tree(mc: dict):
         use_boundary_images=mc.get("use_boundary_images", False),
         ev_target_indices=tuple(mc["correlation"]["ev"]["target_indices"]),
         ev_levels=tuple(mc["correlation"]["ev"]["levels"]),
-        iters=mc["num_iter"]["test"],
+        iters=mc["num_iter"][phase],
+        freeze_bn=mc.get("freeze_bn", False),
         corr_dtype=mc.get("corr_dtype", "float32"),
         compute_dtype=mc.get("compute_dtype", "float32"))
+
+
+def traj_train_configs(cfg_tree: dict, image_hw, max_steps: int):
+    """(RAFTSplineConfig, RAFTTrainConfig, FocusLossConfig) of traj-train
+    from the composed config: the model with model.num_iter.train
+    iterations, the optimizer over `max_steps` steps, and the loss at the
+    data's resolution with the per-group dynamic interpolation band unless
+    the config sets one (Bezier displacements have no fixed bound)."""
+    from ..losses import make_loss
+    from ..training.raft_spline import RAFTTrainConfig
+
+    cfg = raft_config_from_tree(cfg_tree["model"], "train")
+    tcfg = cfg_tree["training"]
+    tc = RAFTTrainConfig(learning_rate=tcfg["learning_rate"],
+                         weight_decay=tcfg["weight_decay"],
+                         use_scheduler=tcfg["lr_scheduler"]["use"],
+                         total_steps=max_steps,
+                         accumulate_steps=tcfg.get("accumulate_steps", 1))
+    lc = dict(cfg_tree["loss"])
+    lc.setdefault("interp_band_dynamic", "per_group")
+    loss_cfg = make_loss(lc.pop("type", "FOCUS"), image_shape=tuple(image_hw),
+                         **lc)
+    return cfg, tc, loss_cfg
+
+
+def multiflow_subset(ds: dict, split: str, nbins_context: int, **kw):
+    """The MultiFlow reader of `split` ('train' / 'test') under dataset.path."""
+    from ..data.multiflow import MultiflowDatasubset
+
+    return MultiflowDatasubset(
+        Path(ds["path"]) / split, num_bins_context=nbins_context,
+        flow_every_n_ms=ds["flow_every_n_ms"],
+        prediction_time_ms=ds.get("prediction_time", 500), **kw)
+
+
+def multiflow_eval_subset(ds: dict, nbins_context: int):
+    """MultiFlow's test split as traj-val and traj-train validate on it."""
+    return multiflow_subset(
+        ds, "test", nbins_context,
+        load_voxel_grid=ds.get("load_voxel_grid", True),
+        extended_voxel_grid=ds.get("extended_voxel_grid", True),
+        normalize_voxel_grid=ds.get("normalize_voxel_grid", True))
 
 
 def stack_traj_batch(samples: Sequence[dict], device: torch.device,
@@ -131,8 +177,10 @@ def stack_traj_batch(samples: Sequence[dict], device: torch.device,
 def run_traj_validation(model, provider, bsz: int,
                         flow_timestamps: Sequence[float],
                         min_traj_len: Optional[float] = None,
-                        max_traj_len: Optional[float] = None) -> dict:
-    """One validation pass over `provider` (indexable samples) -> metrics.
+                        max_traj_len: Optional[float] = None,
+                        iters: Optional[int] = None) -> dict:
+    """One validation pass over `provider` (indexable samples) -> metrics,
+    with `iters` refinement iterations (the model's own when None).
 
     Full batches only, as the JAX CLI does; metric sums stay on the device
     until the end."""
@@ -148,7 +196,7 @@ def run_traj_validation(model, provider, bsz: int,
         batch = stack_traj_batch(samples, device,
                                  model.cfg.use_boundary_images)
         bank.update_device(raft_validation_step(
-            model, batch, flow_timestamps, min_traj_len, max_traj_len))
+            model, batch, flow_timestamps, min_traj_len, max_traj_len, iters))
     return bank.compute()
 
 
@@ -181,17 +229,19 @@ def cmd_traj_val(args) -> int:
 
     ds = cfg_tree["dataset"]
     dataset_name = ds.get("name", "evimo2")
-    if dataset_name == "multiflow":
-        raise SystemExit("dataset.name=multiflow is not ported yet; the port's "
-                         "traj-val reads EVIMO2")
-    if dataset_name != "evimo2":
+    if dataset_name == "evimo2":
+        provider = Evimo2Provider(
+            ds["path"], nbins_context=cfg.nbins_context,
+            flow_time_ms=ds["flow_time"],
+            normalize_voxel_grid=ds["normalize_voxel_grid"],
+            flow_every_n_ms=ds["flow_every_n_ms"])
+        num_steps = int(ds["flow_time"] // ds["flow_every_n_ms"])
+        ts = tuple(np.linspace(0, 1, num_steps + 1)[1:].tolist())
+    elif dataset_name == "multiflow":
+        provider = multiflow_eval_subset(ds, cfg.nbins_context)
+        ts = tuple(float(t) for t in provider[0]["flow_timestamps"])
+    else:
         raise SystemExit(f"unknown dataset {dataset_name!r}")
-    provider = Evimo2Provider(
-        ds["path"], nbins_context=cfg.nbins_context,
-        flow_time_ms=ds["flow_time"],
-        normalize_voxel_grid=ds["normalize_voxel_grid"],
-        flow_every_n_ms=ds["flow_every_n_ms"])
-    num_steps = int(ds["flow_time"] // ds["flow_every_n_ms"])
 
     model = create_raft_model(cfg, device, torch.Generator().manual_seed(0))
     if ckpt:
@@ -200,7 +250,6 @@ def cmd_traj_val(args) -> int:
         load_raft_spline_weights(model, extract_model_weights(str(ckpt),
                                                               prefix="net."))
 
-    ts = tuple(np.linspace(0, 1, num_steps + 1)[1:].tolist())
     vc = cfg_tree.get("validation", {}) or {}
     results = run_traj_validation(model, provider,
                                   cfg_tree.get("batch_size", 8), ts,
@@ -214,6 +263,114 @@ def cmd_traj_val(args) -> int:
     print("==========================")
     for k in sorted(results):
         print(f"{k}: {results[k]:.5f}")
+    return 0
+
+
+def cmd_traj_train(args) -> int:
+    """RAFT-Spline training on one device (JAX: cli/main.py cmd_traj_train):
+    self-supervised (focus loss on raw events, EVIMO2 imo/train or
+    MultiFlow train) or supervised (gamma-weighted L1 against MultiFlow's
+    GT flow), validating on the eval split every --val-every steps."""
+    import functools
+    from datetime import datetime
+
+    from ..config import compose
+    from ..data.evimo2 import Evimo2Provider
+    from ..data.loader import DataLoader
+    from ..device import resolve_device
+    from ..training.loop import train_traj
+    from ..training.raft_spline import create_raft_train_state
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        raise SystemExit(f"traj-train: {exc}") from None
+    cfg_tree = compose(args.config_dir, args.config_name, args.overrides)
+    ds, tcfg = cfg_tree["dataset"], cfg_tree["training"]
+    nbins_context = cfg_tree["model"]["num_bins"]["context"]
+    supervised = args.loss == "supervised"
+    pab = (cfg_tree["loss"].get("polarity_aware_batching", False)
+           and not supervised)
+
+    if ds.get("name") == "multiflow":
+        from ..data.augment import (MultiflowAugmentor, PhotometricAugmentor,
+                                    SpatialAugmentor)
+
+        aug = None
+        if ds.get("spatial_augm") or ds.get("photo_augm"):
+            aug = MultiflowAugmentor(
+                spatial=(SpatialAugmentor(h_flip_prob=0.5)
+                         if ds.get("spatial_augm") else None),
+                photometric=(PhotometricAugmentor()
+                             if ds.get("photo_augm") else None))
+        dataset = multiflow_subset(
+            ds, "train", nbins_context,
+            normalize_voxel_grid=ds["normalize_voxel_grid"],
+            provide_raw_events=not supervised, polarity_aware_batching=pab,
+            augmentor=aug)
+    elif supervised:
+        raise SystemExit("traj-train: --loss supervised needs the multiflow "
+                         "dataset (EVIMO2's GT is validation-only)")
+    else:
+        try:
+            dataset = Evimo2Provider(
+                ds["path"], nbins_context, ds["flow_time"],
+                ds["normalize_voxel_grid"], ds["flow_every_n_ms"],
+                provide_raw_events=True, polarity_aware_batching=pab,
+                split="train")
+        except FileNotFoundError as exc:
+            raise SystemExit(f"traj-train: {exc}") from None
+
+    capacity = args.event_capacity
+    pos_capacity = capacity // 2 if pab else None
+    # The resolution comes from the data (EVIMO2 resizes to 384x512,
+    # MultiFlow is 384x512).
+    image_hw = tuple(dataset[0]["ev_repr"].shape[-2:])
+    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, image_hw, args.max_steps)
+    loader = DataLoader(
+        dataset, batch_size=tcfg["batch_size"], capacity=capacity,
+        polarity_aware=pab, pos_capacity=pos_capacity,
+        num_workers=cfg_tree.get("hardware", {}).get("num_workers", 8),
+        lut_cell_sort_params=None if supervised else (
+            loss_cfg.image_shape, loss_cfg.num_bins,
+            loss_cfg.lut_superpixel_size))
+
+    validate = None
+    if args.val_every > 0:
+        val_provider = None
+        if ds.get("name") == "multiflow":
+            if (Path(ds["path"]) / "test").is_dir():
+                val_provider = multiflow_eval_subset(ds, nbins_context)
+                val_ts = tuple(float(t)
+                               for t in val_provider[0]["flow_timestamps"])
+        elif (Path(ds["path"]) / "imo" / "eval").is_dir():
+            val_provider = Evimo2Provider(
+                ds["path"], nbins_context=nbins_context,
+                flow_time_ms=ds["flow_time"],
+                normalize_voxel_grid=ds["normalize_voxel_grid"],
+                flow_every_n_ms=ds["flow_every_n_ms"])
+            m = int(ds["flow_time"] // ds["flow_every_n_ms"])
+            val_ts = tuple(np.linspace(0, 1, m + 1)[1:].tolist())
+        if val_provider is not None:
+            vc = cfg_tree.get("validation", {}) or {}
+            validate = functools.partial(
+                run_traj_validation, provider=val_provider,
+                bsz=args.val_batch_size, flow_timestamps=val_ts,
+                min_traj_len=vc.get("min_traj_len"),
+                max_traj_len=vc.get("max_traj_len"),
+                iters=cfg_tree["model"]["num_iter"]["test"])
+
+    state = create_raft_train_state(cfg, tc, device,
+                                    torch.Generator().manual_seed(0))
+    workdir = args.workdir or f"runs/traj_{datetime.now():%Y%m%d_%H%M%S}"
+    out = train_traj(state, loader, workdir, max_steps=args.max_steps,
+                     loss_cfg=None if supervised else loss_cfg,
+                     num_pos_events=pos_capacity if pab else -1,
+                     gamma=tcfg.get("gamma"),
+                     gamma_sample_k=tcfg.get("gamma_sample_k"),
+                     log_every=args.log_every, ckpt_every=args.ckpt_every,
+                     val_every=args.val_every, validate=validate)
+    print(f"done: {out['steps']} steps -> {workdir}")
     return 0
 
 
@@ -243,6 +400,28 @@ def main(argv=None) -> int:
                    help="cuda (default) or cpu; cuda fails when absent")
     p.add_argument("overrides", nargs="*")
     p.set_defaults(fn=cmd_traj_val)
+
+    p = sub.add_parser("traj-train", help="RAFT-Spline trajectory training")
+    p.add_argument("--config-dir", required=True)
+    p.add_argument("--config-name", default="val")
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--max-steps", type=int, default=100000)
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--ckpt-every", type=int, default=1000)
+    p.add_argument("--event-capacity", type=int, default=1 << 20)
+    p.add_argument("--loss", choices=("selfsup", "supervised"),
+                   default="selfsup",
+                   help="selfsup = focus loss on raw events (EVIMO2 or "
+                        "MultiFlow); supervised = gamma-weighted L1 against "
+                        "GT multi-step flow (MultiFlow only)")
+    p.add_argument("--val-every", type=int, default=1000,
+                   help="validation + best-k checkpoints every N steps (0 "
+                        "disables; needs an eval split on disk)")
+    p.add_argument("--val-batch-size", type=int, default=4)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda fails when absent")
+    p.add_argument("overrides", nargs="*")
+    p.set_defaults(fn=cmd_traj_train)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -34,7 +34,9 @@ def collate_fixed_capacity(samples: List[Dict[str, np.ndarray]],
     Args:
       samples: dicts with 'events' [n, 5] (or 'pos_events' / 'neg_events'
         when polarity_aware), optional 'voxel' [C, H, W], 'forward_flow'
-        [2, H, W], 'flow_valid' [H, W], 'timestamp', 'file_index', 'name'.
+        [2, H, W], 'flow_valid' [H, W], 'timestamp', 'file_index', 'name',
+        and the trajectory samples' 'ev_repr', 'flow', 'flow_timestamps',
+        'id_mask' (stacked as they are).
       capacity: per-sample event capacity (both halves together when
         polarity_aware).
       pos_capacity: positive capacity (capacity // 2 when None).
@@ -69,7 +71,7 @@ def collate_fixed_capacity(samples: List[Dict[str, np.ndarray]],
             batch["lut_cell_ends"] = np.stack([p[1] for p in pairs])
         batch["events"] = np.stack(ev)
     for key in ("voxel", "forward_flow", "flow_valid", "timestamp",
-                "file_index"):
+                "file_index", "ev_repr", "flow", "flow_timestamps", "id_mask"):
         if key in samples[0]:
             batch[key] = np.stack([np.asarray(s[key]) for s in samples])
     if "name" in samples[0]:

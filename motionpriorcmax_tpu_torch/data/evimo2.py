@@ -12,7 +12,10 @@ EVIMO2 loader (src/loader/evimo2/datasubset.py + provider.py):
   * GT from dataset_multiflow_10steps_vis.h5: multiflow + obj_id_mask +
     NaN -> valid mask (:166-183); timestamps linspace(0,1,1+steps)[1:]
   * optional raw events (y, x, t_norm, p, bin) over the last flow_time ms
-    for the CMax loss (:206-228)
+    for the CMax loss (:206-228), split into polarity halves for
+    polarity-aware batching.  They stay in the 480x640 sensor frame while
+    the voxel grid and the loss image are 384x512; `x_scale` / `y_scale`
+    are emitted and read by nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -165,18 +168,24 @@ class Evimo2Datasubset:
 
 
 class Evimo2Provider:
-    """Validation provider over imo/eval sequence dirs (provider.py:12-68)."""
+    """The sequence dirs of one split, imo/eval (validation, provider.py:
+    12-68) or imo/train (self-supervised training: JAX cli/main.py
+    cmd_traj_train reads every imo/train/<seq> with raw events), indexed
+    as one dataset."""
 
     def __init__(self, dataset_path: str, nbins_context: int = 41,
                  flow_time_ms: int = 300, normalize_voxel_grid: bool = True,
-                 flow_every_n_ms: int = 50, provide_raw_events: bool = False):
+                 flow_every_n_ms: int = 50, provide_raw_events: bool = False,
+                 polarity_aware_batching: bool = False, split: str = "eval"):
         dataset_path = Path(dataset_path)
-        val_path = dataset_path / "imo" / "eval"
-        if not val_path.is_dir():
-            raise FileNotFoundError(f"EVIMO2 eval split missing: {val_path}")
+        val_path = dataset_path / "imo" / split
+        if not val_path.is_dir() or not os.listdir(val_path):
+            raise FileNotFoundError(
+                f"EVIMO2 {split} split missing or empty: {val_path}")
         self.val_subsets: List[Evimo2Datasubset] = [
             Evimo2Datasubset(val_path / d, nbins_context, flow_time_ms,
                              normalize_voxel_grid, provide_raw_events,
+                             polarity_aware_batching=polarity_aware_batching,
                              flow_every_n_ms=flow_every_n_ms)
             for d in sorted(os.listdir(val_path))
         ]

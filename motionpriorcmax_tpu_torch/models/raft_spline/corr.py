@@ -6,8 +6,12 @@
   * per-target pyramid: level L keeps the targets with levels >= L, each
     2x2 average-pooled from its level L-1 volume
   * lookup: a (2r+1)^2 bilinear window around the curve-predicted coords at
-    every level, through the corr-window kernel (ops/cuda/corr_window.py),
-    written into [B, sum_l T_l * (2r+1)^2, h1, w1]
+    every level, through the corr-window kernels (ops/cuda/corr_window.py,
+    forward and backward behind `CorrPyramidLookup`), written into
+    [B, sum_l T_l * (2r+1)^2, h1, w1]
+
+The volume's matmul and the pyramid's pooling are plain PyTorch, as the JAX
+package leaves them to XLA; autograd carries their backward.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ...ops.cuda.corr_window import corr_window_lookup
+from ...ops.cuda.corr_window import CorrPyramidLookup
 
 Pyramid = List[Tuple[Tuple[int, ...], torch.Tensor]]
 
@@ -92,14 +96,13 @@ def lookup_corr_pyramid(pyramid: Pyramid, coords: torch.Tensor,
 
     Returns:
       [B, sum_l T_l * (2r+1)^2, h1, w1] float32: level-major, then target,
-      then (2r+1)^2 row-major over (dy, dx).  One kernel launch per level.
+      then (2r+1)^2 row-major over (dy, dx).  One forward kernel launch per
+      level and, under autograd, one backward launch per level; the
+      gradient reaches the volumes and `coords` (through the bilinear
+      fractions; the per-level 1/2^l scale is torch's, outside the kernel).
     """
     t0, b, _, h1, w1 = coords.shape
-    k = (2 * radius + 1) ** 2
-    total = sum(len(idx) for idx, _ in pyramid)
-    out = torch.empty(b, total * k, h1, w1, dtype=torch.float32,
-                      device=coords.device)
-    chan_off = 0
+    tensors = []
     for lvl, (target_idx, corr_l) in enumerate(pyramid):
         # Integer indexing + stack: indexing with a list would copy the index
         # to the card from pageable memory, which synchronizes the stream.
@@ -107,6 +110,5 @@ def lookup_corr_pyramid(pyramid: Pyramid, coords: torch.Tensor,
         tl = len(target_idx)
         cx = sel[:, :, 0].reshape(tl, b, h1 * w1).contiguous()
         cy = sel[:, :, 1].reshape(tl, b, h1 * w1).contiguous()
-        corr_window_lookup(corr_l, cx, cy, radius, out, chan_off)
-        chan_off += tl * k
-    return out
+        tensors.extend((corr_l, cx, cy))
+    return CorrPyramidLookup.apply(radius, h1, w1, *tensors)

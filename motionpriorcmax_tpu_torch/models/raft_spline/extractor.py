@@ -3,8 +3,9 @@
 
 RAFT's BasicEncoder with its canonical state-dict names: conv7x7/2 (`conv1`)
 -> `norm1` -> 2 residual blocks @64 (`layer1`) -> 2 @96 /2 (`layer2`) -> 2
-@128 /2 (`layer3`) -> 1x1 conv to output_dim (`conv2`).  Instance norm is
-non-affine; batch norm uses its running statistics in eval mode.
+@128 /2 (`layer3`) -> 1x1 conv to output_dim (`conv2`).  Both norms have
+flax's arithmetic (models/norm.py): instance norm is non-affine; batch norm
+uses batch statistics in train mode, running statistics in eval mode.
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..norm import FlaxBatchNorm2d, FlaxInstanceNorm2d
+
 
 def _norm(norm_fn: str, planes: int) -> nn.Module:
     if norm_fn == "instance":
-        return nn.InstanceNorm2d(planes, affine=False, eps=1e-5)
+        return FlaxInstanceNorm2d(eps=1e-5)
     if norm_fn == "batch":
-        return nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1)
+        return FlaxBatchNorm2d(planes)
     if norm_fn == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm_fn {norm_fn!r}")

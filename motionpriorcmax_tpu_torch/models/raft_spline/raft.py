@@ -34,7 +34,7 @@ class RAFTSplineConfig:
     """The JAX config's field names (the trajectory model YAML leaves).
 
     The JAX package's TPU layout knobs (remat_*, corr_lookup_impl) have no
-    counterpart here.
+    counterpart here: the port keeps the iterations' activations.
     """
 
     nbins_context: int = 41
@@ -55,6 +55,8 @@ class RAFTSplineConfig:
     feature_norm: str = "instance"
     motion_dim: int = 128
     iters: int = 12
+    # Train mode keeps the encoders' BatchNorm on its running statistics.
+    freeze_bn: bool = False
     # Storage dtype of the correlation pyramid; the dot products are f32
     # and the lookup accumulates in f32 either way.
     corr_dtype: str = "float32"
@@ -141,22 +143,53 @@ class RAFTSpline(nn.Module):
                       for idx in (0, *cfg.ev_target_indices)]
         return corr_grids, voxel_grid[:, -cfg.nbins_context:]
 
+    def train(self, mode: bool = True) -> "RAFTSpline":
+        """With cfg.freeze_bn the encoders stay in eval mode: their BatchNorm
+        keeps the running statistics (the JAX model's `train and not
+        freeze_bn`)."""
+        super().train(mode)
+        if mode and self.cfg.freeze_bn:
+            for name in ("fnet_ev", "fnet_img", "cnet"):
+                if hasattr(self, name):
+                    getattr(self, name).eval()
+        return self
+
     def forward(self, voxel_grid: Optional[torch.Tensor] = None,
                 images: Optional[Sequence[torch.Tensor]] = None,
-                test_mode: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """test_mode -> (params [B, 2*deg, h/8, w/8], params_up [B, 2*deg, h, w]).
+                iters: Optional[int] = None, test_mode: bool = False,
+                return_sequences: bool = False):
+        """The refinement loop over `iters` (cfg.iters when None) iterations.
 
-        The train-mode outputs (one upsampled prediction per iteration) come
-        with the RAFT training slice.
+        Returns, as the JAX model does:
+          test_mode: (params [B, 2*deg, h/8, w/8], params_up [B, 2*deg, h, w])
+            of the last iteration;
+          return_sequences: (params_seq [iters, B, 2*deg, h/8, w/8],
+            mask_seq [iters, B, 576, h/8, w/8]), low resolution;
+          otherwise: the list of the iters upsampled predictions.
+        BatchNorm follows the module's mode (train(): batch statistics and
+        running updates, unless cfg.freeze_bn).  Differentiable, the corr
+        lookup included (its backward is the corr-window backward kernel);
+        the caller runs the backward under `no_tf32` too.
         """
-        if not test_mode:
-            raise NotImplementedError(
-                "train-mode outputs are not ported yet; call with test_mode=True")
+        iters = self.cfg.iters if iters is None else iters
+        if iters < 1:
+            raise ValueError("iters must be >= 1")
+        keep_all = not test_mode
         with no_tf32():             # compute_dtype 'float32', the one ported
-            return self._forward_test(voxel_grid, images)
+            params_seq, mask_seq = self._refine(voxel_grid, images, iters,
+                                                keep_all)
+            if test_mode:
+                return params_seq[-1], cvx_upsample(params_seq[-1],
+                                                    mask_seq[-1])
+            if return_sequences:
+                return torch.stack(params_seq), torch.stack(mask_seq)
+            return [cvx_upsample(p, m) for p, m in zip(params_seq, mask_seq)]
 
-    def _forward_test(self, voxel_grid, images):
+    def _refine(self, voxel_grid, images, iters: int, keep_all: bool
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Encoders, pyramid and the update loop; returns the per-iteration
+        params and upsample masks (the last iteration's only unless
+        keep_all)."""
         cfg = self.cfg
         lookup_ts: List[float] = []
         corr_volumes = []
@@ -200,7 +233,9 @@ class RAFTSpline(nn.Module):
             ts, cfg.bezier_degree, cfg.curve_type,
             self.basis_mlp if cfg.curve_type == "LEARNED" else None)  # [T, P]
 
-        for _ in range(cfg.iters):
+        params_seq: List[torch.Tensor] = []
+        mask_seq: List[torch.Tensor] = []
+        for _ in range(iters):
             if cfg.detach_bezier:
                 params = params.detach()
             pv = params.reshape(b, 2, cfg.bezier_degree, *params.shape[2:])
@@ -210,4 +245,9 @@ class RAFTSpline(nn.Module):
             net, up_mask, delta = self.update_block(net, inp, corr_total,
                                                     params)
             params = params + delta
-        return params, cvx_upsample(params, up_mask)
+            if not keep_all:
+                params_seq.clear()
+                mask_seq.clear()
+            params_seq.append(params)
+            mask_seq.append(up_mask)
+        return params_seq, mask_seq

@@ -30,41 +30,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import no_tf32
+from .norm import FlaxBatchNorm2d
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d's parameters and state-dict names with flax's math.
-
-    Train mode: mean = E[x], var = max(0, E[x^2] - E[x]^2) over (N, H, W) in
-    f32; running = (1 - momentum) * running + momentum * batch statistic,
-    biased variance included.  Eval mode uses the running statistics.
-    y = (x - mean) * (rsqrt(var + eps) * weight) + bias in f32, cast back
-    to the input's dtype.
-    """
-
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(1.0 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1.0 - self.momentum).add_(
-                    self.momentum * var)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] \
-            + self.bias[None, :, None, None]
-        return y.to(x.dtype)
 
 
 class _Conv(nn.Conv2d):

@@ -234,12 +234,13 @@ _INDEX = "index.json"
 
 def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
                     metric: Optional[float] = None) -> Path:
-    """Write `state` (model, optimizer, step) to <ckpt_dir>/step_<step>.pt.
+    """Write `state` (model, optimizer, the learning-rate schedule when the
+    state has one, step) to <ckpt_dir>/step_<step>.pt.
 
     With `metric`, retention keeps the `keep` checkpoints of lowest metric
-    (the reference's ModelCheckpoint(save_top_k=5) on val_losses/EPE);
-    without, the `keep` latest.  The index of retained steps and their
-    metrics is <ckpt_dir>/index.json.
+    (the reference's ModelCheckpoint(save_top_k=5) on val_losses/EPE, or
+    val/masked_TEPE for traj-train); without, the `keep` latest.  The index
+    of retained steps and their metrics is <ckpt_dir>/index.json.
     """
     path = Path(ckpt_dir)
     path.mkdir(parents=True, exist_ok=True)
@@ -247,9 +248,13 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
     index = (json.loads(index_path.read_text()) if index_path.is_file()
              else [])
     out = path / f"step_{step}.pt"
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": step, "metric": metric}, out)
+    blob = {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": step, "metric": metric}
+    scheduler = getattr(state, "scheduler", None)
+    if scheduler is not None:
+        blob["scheduler"] = scheduler.state_dict()
+    torch.save(blob, out)
     index = [e for e in index if e["step"] != step]
     index.append({"step": step, "metric": metric, "file": out.name})
     if metric is not None:      # best first; unscored and ties: latest first
@@ -287,5 +292,7 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
                       weights_only=True)
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
+    if "scheduler" in blob:
+        state.scheduler.load_state_dict(blob["scheduler"])
     state.step = int(blob["step"])
     return state, step

@@ -112,7 +112,9 @@ def test_wrapper_rejects_bad_inputs():
 def test_cuda_dispatch_raises_on_requires_grad(monkeypatch):
     # On a CUDA tensor the wrapper launches the kernel or raises; it never
     # falls back.  Mock the dispatch so that CPU tensors take the CUDA
-    # branch: a volume under autograd must raise before any build.
+    # branch: the in-place slab writer carries no gradient, so a volume
+    # under autograd must raise before any build (gradients go through
+    # CorrPyramidLookup).
     monkeypatch.setattr(cw, "_is_cuda", lambda x: True)
 
     def no_build(name):
@@ -124,7 +126,7 @@ def test_cuda_dispatch_raises_on_requires_grad(monkeypatch):
     corr = torch.zeros(1, 1, 4, 3, 3, requires_grad=True)
     cxy = torch.zeros(1, 1, 4)
     out = torch.zeros(1, 81, 2, 2)
-    with pytest.raises(NotImplementedError, match="backward kernel not ported"):
+    with pytest.raises(ValueError, match="CorrPyramidLookup"):
         cw.corr_window_lookup(corr, cxy, cxy, 4, out, 0)
 
 

@@ -5,11 +5,10 @@ randomized so that every mapped tensor matters) and reach the port through
 `flax_raft_spline_to_torch`; inputs are numpy arrays from a seed.  JAX runs
 on the CPU and its corr lookup takes the einsum path (a selection, the same
 function as the Pallas kernel).  Tolerances: per module 1e-5 abs plus 1e-5
-relative in f32 (conv and norm sums run in another order, and flax's
-instance norm takes the variance as E[x^2] - E[x]^2, torch as
-E[(x - mean)^2]); the whole 2-iteration forward
-1e-4 relative to the output's scale (the differences pass through the GRU
-and the convex upsample).
+relative in f32 (conv and norm sums run in another order; both norms take
+the variance as E[x^2] - E[x]^2, as flax does); the whole 2-iteration
+forward 1e-4 relative to the output's scale (the differences pass through
+the GRU and the convex upsample).
 """
 
 import jax

@@ -166,11 +166,12 @@ def test_traj_val_without_cuda_exits_with_message(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name,overrides,match", [
     ("none.ckpt", [], "does not exist"),
     ("orbax_dir", [], "orbax"),
-    ("Tab2L5.ckpt", ["dataset.name=multiflow"], "not ported yet"),
+    ("Tab2L5.ckpt", ["dataset.name=dsec"], "unknown dataset"),
 ])
 def test_traj_val_refuses_what_it_cannot_run(tmp_path, name, overrides, match):
     """A missing checkpoint (the JAX CLI would run on random weights), an
-    orbax directory and MultiFlow stop with a message."""
+    orbax directory and a dataset other than EVIMO2 and MultiFlow stop with
+    a message."""
     from motionpriorcmax_tpu_torch.cli.main import main
 
     (tmp_path / "orbax_dir").mkdir()
