@@ -9,7 +9,8 @@ Phases, one or more lines each; any failure exits non-zero:
      them (the models' forwards turn both off for compute_dtype float32)
   2. build: every kernel source in motionpriorcmax_tpu_torch/csrc, one nvcc
      per source, all started together, for sm_90a, with the -Xptxas -v
-     register report
+     register report, and beside them the native host library
+     (motionpriorcmax_tpu_torch/native/event_ops.cc, g++)
   traj-val (RAFT-Spline Tab2L5 serving, EVIMO2 geometry):
   3. kernel vs plain: the corr-window kernel against its plain PyTorch
      version at the four pyramid-level shapes of the EVIMO2 batch-8 path,
@@ -96,6 +97,33 @@ Phases, one or more lines each; any failure exits non-zero:
      step
  24. card vs CPU: one f32 raft_train_step and one supervised step at the
      test geometry: loss, gradients, BatchNorm statistics
+  flow-train on unsorted events (dsec.yaml with loss.knn_method: softmax
+  and the voxel grid voted in the step, on phase 8's samples collated
+  without the LUT-cell sort, the DataLoader's default):
+ 25. kernel vs plain: the any-order segment sum (kernel row 5, the LUT
+     gather's backward) at the step's shapes (B=14, M=2^20, LUT [1800,
+     160, 2], ~4.6% padding with zero cotangent), at the traj-train shapes
+     ([6, 3936, 128, 2], 2^19 events per sample) and with every cotangent
+     on 8 cells per sample
+ 26. its timing (CUDA events, L2 flushed): kernel, bytes bound, plain
+     version, torch.gather's backward (scatter_add_); with the padding
+     rows' cotangent nonzero, and with no padding
+ 27. training: train_flow on the unsorted batches: launches per step 1
+     segment sum, 2 + 2 vote (row 4), 1 voxel vote, 1 + 1 softmax and no
+     LUT gather; TF32 off in the UNet's forward and backward; the
+     cell-sorted step of phase 16 beside it
+ 28. where the time goes, as phase 17
+ 29. card vs CPU: one f32 unsorted train_step at the test geometry
+ 30. the JAX package's learning checks on the card, on unsorted events:
+     loss-only recovery of a translation (exact and softmax, 45 Adam
+     steps) and the UNet self-supervised step (120 steps), with their
+     thresholds
+  host data:
+ 31. DataLoader batches/s over in-memory synthetic DSEC windows (native
+     pack, host voxel grid and LUT-cell sort on the pool, pinned batches)
+     for {cell-sorted, unsorted} x {host, device voxel}, each against the
+     step that consumes it; one batch's collate with the NumPy twins in
+     one thread and with the native ops on the pool
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -158,12 +186,20 @@ def phase_build():
 
     from motionpriorcmax_tpu_torch.ops.cuda.build import CSRC_DIR, build_library
 
+    from motionpriorcmax_tpu_torch import native
+
     names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(native.build)
         built = list(pool.map(build_library, names))
+        host_lib = host.result()
     print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f} s "
-          "(nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
+          "(nvcc -gencode arch=compute_90a,code=sm_90a, in parallel) and the "
+          f"native host library {host_lib.name} "
+          f"({' '.join(native.CXX_FLAGS)})")
+    if not native.available():
+        fail(f"the native host library did not load: {native.build_error()}")
     for path, log in built:
         print(f"[build] {path.name}")
         for line in log.splitlines():
@@ -593,9 +629,19 @@ def phase_flow_batch(cfg, loss_cfg, batch_size):
           f"{FLOW_CAPACITY}, polarity packing, LUT-cell sort, cell_ends) "
           f"{t_collate:.2f} s; {valid} valid events of "
           f"{batch['events'].shape[0] * batch['events'].shape[1]}")
+    # The same samples collated without the LUT-cell sort (the DataLoader's
+    # default) and without their host voxel: the unsorted path's batches.
+    t0 = time.perf_counter()
+    unsorted = collate_fixed_capacity(
+        [{k: v for k, v in smp.items() if k != "voxel"} for smp in samples],
+        FLOW_CAPACITY, polarity_aware=True)
+    print(f"[flow-batch] the same samples collated unsorted (pad, polarity "
+          f"packing; no sort, no voxel) {time.perf_counter() - t0:.2f} s")
     train = {k: v for k, v in batch.items()
              if k not in ("forward_flow", "flow_valid")}
-    return train, batch
+    unsorted_train = {k: v for k, v in unsorted.items()
+                      if k not in ("forward_flow", "flow_valid")}
+    return train, batch, unsorted_train, unsorted
 
 
 def vote_inputs(torch, events, npos, seed):
@@ -948,17 +994,25 @@ SOFTMAX_KERNELS = ("softmax_interp_fwd", "softmax_interp_bwd", "voxel_vote")
 # Launches per train step and in the val pass of the two flow-train paths.
 EXACT_STEP = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
               "lut_segsum_bwd": 1, "softmax_interp_fwd": 0,
-              "softmax_interp_bwd": 0, "voxel_vote": 0}
+              "softmax_interp_bwd": 0, "voxel_vote": 0,
+              "grid_segment_sum": 0}
 EXACT_VAL = {**EXACT_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0}
 SOFTMAX_STEP = {**EXACT_STEP, "softmax_interp_fwd": 1,
                 "softmax_interp_bwd": 1, "voxel_vote": 1}
 SOFTMAX_VAL = {**SOFTMAX_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0,
                "softmax_interp_bwd": 0}
+# The softmax / device-voxel step on unsorted events: no LUT-gather kernels
+# (row 6), the any-order segment sum (row 5) in their place, and the vote
+# (row 4) and voxel vote (row 8) on events in any order.
+UNSORTED_STEP = {**SOFTMAX_STEP, "lut_gather_fwd": 0, "lut_segsum_bwd": 0,
+                 "grid_segment_sum": 1}
+UNSORTED_VAL = {**SOFTMAX_VAL, "lut_gather_fwd": 0}
 
 
 def kernel_wrappers():
     from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
     from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
+    from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
     from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
     from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
 
@@ -967,15 +1021,18 @@ def kernel_wrappers():
            "lut_segsum_bwd": lg.lut_segsum_bwd,
            "softmax_interp_fwd": si.softmax_interp_fwd,
            "softmax_interp_bwd": si.softmax_interp_bwd,
-           "voxel_vote": vv.voxel_vote}
+           "voxel_vote": vv.voxel_vote,
+           "grid_segment_sum": ss.grid_segment_sum}
     return fns
 
 
 def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
-                     want, val_want, tag="flow-train"):
+                     want, val_want, tag="flow-train", state=None):
     """train_flow at full width: 1 warm-up + 3 timed steps, one val pass,
-    a checkpoint.  Fails unless every step launches `want` and the val
-    pass `val_want`.  Returns the kernels' launch counts over the run."""
+    a checkpoint; `state` is the train state to start from (else one made
+    from seed 0).  Fails unless every step launches `want` and the val pass
+    `val_want`.  Returns (the kernels' launch counts over the run, mean
+    step ms)."""
     import tempfile
 
     from motionpriorcmax_tpu_torch.training.loop import train_flow
@@ -1002,7 +1059,7 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
             f.launches = 0
         train_flow(cfg, loss_cfg, timed_batches(), [val_batch], workdir,
                    device="cuda", max_epochs=1, num_pos_events=npos,
-                   log_every=1, seed=0)
+                   log_every=1, seed=0, resume_state=state)
         launches = {k: f.launches for k, f in fns.items()}
         peak = torch.cuda.max_memory_allocated()
         with open(f"{workdir}/scalars.jsonl") as fh:
@@ -1046,7 +1103,7 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
           f"{b * m / mean:.4g} events/s padded ({valid / mean:.4g} valid), "
           f"peak memory {peak / 2**30:.2f} GiB; val pass EPE {epe[0]:.4f} "
           f"(launches {in_val}); checkpoints {ckpts}; card {smi_line}")
-    return launches
+    return launches, mean * 1e3
 
 
 def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
@@ -1158,17 +1215,20 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
               f"{e.count:5d}x  {e.key[:80]}")
     for e in kernels:
         if any(k in e.key for k in ("iwe_vote", "lut_gather", "lut_segsum",
-                                    "softmax_interp", "voxel_vote")):
+                                    "softmax_interp", "voxel_vote",
+                                    "segment_sum")):
             print(f"[{tag}]   port kernel {e.key[:60]}: "
                   f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
                   f"launches")
 
 
 def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
-                           want=EXACT_STEP, tag="flow-card-vs-cpu"):
+                           want=EXACT_STEP, tag="flow-card-vs-cpu",
+                           cell_sort=True):
     """One f32 train_step at the test geometry on the CPU (plain versions)
     and on the card (kernels), same weights, batch and t_ref; with
-    `device_voxel` the batch carries no 'voxel'."""
+    `device_voxel` the batch carries no 'voxel', without `cell_sort` no
+    'lut_cell_ends' (events in collate order)."""
     from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
     from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
     from motionpriorcmax_tpu_torch.training.loop import to_device
@@ -1181,7 +1241,8 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
         compute_dtype="float32", unet_widths=[8, 16, 16, 32, 32])
     batch = collate_fixed_capacity(
         flow_samples(3, 2, 2500, h, w, nb), 4096, polarity_aware=True,
-        lut_cell_sort_params=((h, w), nb, loss_cfg.lut_superpixel_size))
+        lut_cell_sort_params=((h, w), nb, loss_cfg.lut_superpixel_size)
+        if cell_sort else None)
     if device_voxel:
         del batch["voxel"]
     times = torch.cat([torch.tensor([0.37]),
@@ -1209,7 +1270,8 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
                        / s_c[n].abs().max().clamp(min=1e-30)) for n in s_c)
     print(f"[{tag}] f32 train_step {h}x{w} B=2, knn_method "
           f"{loss_cfg.knn_method}, {'device' if device_voxel else 'host'} "
-          f"voxel: loss rel diff "
+          f"voxel, {'cell-sorted' if cell_sort else 'unsorted'} events: "
+          f"loss rel diff "
           f"{loss_rel:.3e} (bound {TOL_TRAIN_LOSS:g}), gradients max "
           f"|diff| / max |grad| per tensor {grad_rel:.3e} (bound "
           f"{TOL_TRAIN_GRAD:g}), BN statistics max |diff| / max |stat| per "
@@ -1919,6 +1981,450 @@ def phase_traj_card_vs_cpu(torch):
             fail(f"the card's {kind} launched {launches}, not {want}")
 
 
+# ---------------------------------------------------------------------------
+# flow-train on unsorted events: the any-order segment sum (kernel row 5),
+# the learning checks, the host data path
+# ---------------------------------------------------------------------------
+
+# Row 5 against its plain version: both add each cell's cotangents in f32,
+# the kernel with atomics in a run-dependent order, the plain version's
+# index_put_(accumulate=True) in its own.  At the path's shapes a cell
+# holds a few events; with every cotangent on 8 cells per sample a cell
+# holds ~2^17 normal values, whose f32 sums in two orders differ by
+# ~sqrt(n) ulps of the partial sums (~1e-5 of the largest cell sum).
+TOL_SEGMENT_SUM = 1e-5             # max |diff| / max |plain|
+TOL_SEGMENT_SUM_FEW = 1e-4         # the 8-cell case, likewise
+TRAJ_LUT = (41 * (H // 4), W // 4)  # the traj-train LUT: 41 bins x 96, 128
+# The JAX package's learning checks, at their geometry
+# (tests/test_focus_loss.py, test_flow_recovery.py,
+# test_unet_selfsup_learning.py).
+LEARN_H, LEARN_W, LEARN_BINS = 32, 48, 5
+HOST_BATCHES = 4                   # loader batches timed per data case
+
+
+def segment_sum_inputs(torch, rows, cols, valid, seed):
+    """Cotangents like the path's: normal, zero on padding rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gev = torch.randn(*rows.shape, 2, device="cuda", generator=g)
+    return gev * valid[..., None]
+
+
+def phase_segment_sum(torch, loss_cfg, unsorted_batch):
+    """Row 5 against its plain version at the unsorted flow-train shapes
+    (B=14, M=2^20, LUT [1800, 160], C=2), at the traj-train shapes (B=6,
+    2^19 events per sample in capacity 2^20, LUT [3936, 128]) and with
+    every cotangent on 8 cells; then timed against its bytes bound, the
+    plain version, torch.gather's own backward (scatter_add_), and with
+    the padding rows' cotangent nonzero or no padding at all.  Returns the
+    numbers for the JSON line."""
+    from motionpriorcmax_tpu_torch.losses.focus import lut_indices
+    from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
+
+    events = torch.from_numpy(unsorted_batch["events"]).cuda()
+    b, m, _ = events.shape
+    nb = loss_cfg.num_bins
+    s = loss_cfg.lut_superpixel_size
+    h, w = loss_cfg.image_shape
+    r, x = nb * (h // s), w // s
+    rows, cols = lut_indices(loss_cfg, events, nb, sorted_layout=False)
+    valid = events[..., 5]
+    gev = segment_sum_inputs(torch, rows, cols, valid, 31)
+    pad = float((valid == 0).float().mean())
+    del events
+
+    def check(label, rws, cls, g, rr, xx, tol):
+        """(max |diff|, max |diff| / max |plain|); fails above tol."""
+        got = ss.grid_segment_sum(rws, cls, g, rr, xx)
+        want = ss.segment_sum_plain(rws, cls, g, rr, xx)
+        if not bool(got.isfinite().all()):
+            fail("grid_segment_sum left non-finite values")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        print(f"[segsum-vs-plain] {label}: max |diff| {err:.3e}, / max "
+              f"|plain| {rel:.3e} (bound {tol:g})")
+        if not rel <= tol:
+            fail(f"grid_segment_sum disagrees with plain: {label}")
+        return err, rel
+
+    err = check(f"flow-train B={b} M={m} LUT [{r}, {x}] C=2, {pad:.3f} "
+                "padding", rows, cols, gev, r, x, TOL_SEGMENT_SUM)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    few_r = torch.randint(0, 2, rows.shape, device="cuda", generator=gen,
+                          dtype=torch.int32)
+    few_c = torch.randint(0, 4, rows.shape, device="cuda", generator=gen,
+                          dtype=torch.int32)
+    few_g = torch.randn(b, m, 2, device="cuda", generator=gen)
+    err_few = check("every cotangent on 8 cells per sample", few_r, few_c,
+                    few_g, r, x, TOL_SEGMENT_SUM_FEW)
+    del few_r, few_c, few_g
+
+    # traj-train: 2^19 uniform events per sample, the other half padding.
+    tb, tr, tx = TRAIN_BATCH, *TRAJ_LUT
+    t_rows = torch.randint(0, tr, (tb, TRAIN_CAPACITY), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    t_cols = torch.randint(0, tx, (tb, TRAIN_CAPACITY), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    t_valid = (torch.arange(TRAIN_CAPACITY, device="cuda")
+               % (TRAIN_CAPACITY // 2) < TRAIN_EVENTS // 2).float()
+    t_valid = t_valid[None].expand(tb, -1)
+    t_rows = torch.where(t_valid > 0, t_rows, 0).int()
+    t_cols = torch.where(t_valid > 0, t_cols, 0).int()
+    t_g = segment_sum_inputs(torch, t_rows, t_cols, t_valid, 33)
+    err_traj = check(f"traj-train B={tb} M={TRAIN_CAPACITY} "
+                     f"({TRAIN_EVENTS} valid) LUT [{tr}, {tx}] C=2",
+                     t_rows, t_cols, t_g, tr, tx, TOL_SEGMENT_SUM)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def bound_ms(g, rr, xx):
+        # Each event's C cotangents, the indices of the events with a
+        # nonzero one, and the grid written once.
+        live = int((g != 0).any(-1).sum())
+        nbytes = g.numel() * 4 + live * 8 + g.shape[0] * rr * xx * 2 * 4
+        return nbytes / H100_BYTES_PER_S * 1e3, nbytes
+
+    def gather_bwd(rws, cls, g, rr, xx):
+        """torch.gather's backward: scatter_add_ into a zeroed grid."""
+        flat = (rws.long() * xx + cls.long())[..., None].expand(-1, -1, 2)
+        flat = flat.contiguous()
+        out = torch.zeros(g.shape[0], rr * xx, 2, device="cuda")
+        return lambda: out.zero_().scatter_add_(1, flat, g)
+
+    def timed(label, rws, cls, g, rr, xx):
+        k_ms = time_ms(torch, lambda: ss.grid_segment_sum(rws, cls, g, rr,
+                                                          xx), flush)
+        p_ms = time_ms(torch, lambda: ss.segment_sum_plain(rws, cls, g, rr,
+                                                           xx),
+                       flush, reps=5, warmup=1)
+        l_ms = time_ms(torch, gather_bwd(rws, cls, g, rr, xx), flush,
+                       reps=5, warmup=1)
+        bnd, nbytes = bound_ms(g, rr, xx)
+        print(f"[segsum-timing] {label}: kernel={k_ms * 1e3:.1f} us "
+              f"bound={bnd * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, bytes) "
+              f"plain={p_ms * 1e3:.1f} us library (torch.gather's backward, "
+              f"scatter_add_)={l_ms * 1e3:.1f} us")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
+                "bound_by": "bytes", "library_ms": l_ms}
+
+    out = timed("flow-train, the path's batch", rows, cols, gev, r, x)
+    out["max_abs_err"], out["max_rel_err"] = err
+    out["few_cells_max_abs_err"], out["few_cells_max_rel_err"] = err_few
+    out["traj_max_abs_err"], out["traj_max_rel_err"] = err_traj
+    # The same batch with the padding rows' cotangent nonzero (what the
+    # zero skip saves: ~48k same-address atomics per sample), and with no
+    # padding at all (the padding rows drawn as valid events).
+    g_padnz = torch.where(valid[..., None] > 0, gev, torch.randn_like(gev))
+    out["padding_cotangent_nonzero_ms"] = time_ms(
+        torch, lambda: ss.grid_segment_sum(rows, cols, g_padnz, r, x), flush)
+    full_r = torch.where(valid > 0, rows, torch.randint_like(rows, 0, r))
+    full_c = torch.where(valid > 0, cols, torch.randint_like(cols, 0, x))
+    out["no_padding_ms"] = time_ms(
+        torch, lambda: ss.grid_segment_sum(full_r, full_c, g_padnz, r, x),
+        flush)
+    print(f"[segsum-timing] padding rows ({pad:.3f} of the events, all in "
+          f"cell (0, 0)): skipped (the path) {out['ms'] * 1e3:.1f} us, "
+          f"with a nonzero cotangent "
+          f"{out['padding_cotangent_nonzero_ms'] * 1e3:.1f} us; no padding "
+          f"(every row a valid event) {out['no_padding_ms'] * 1e3:.1f} us")
+    traj = timed("traj-train shapes", t_rows, t_cols, t_g, tr, tx)
+    out.update({f"traj_{k}": v for k, v in traj.items() if k != "bound_by"})
+    del rows, cols, gev, g_padnz, full_r, full_c, t_rows, t_cols, t_g, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_unsorted_train(torch, cfg, loss_cfg, train_batch, val_batch,
+                         smi_line, sorted_ms):
+    """train_flow on the unsorted batches (softmax, device voxel): 1
+    warm-up + 3 timed steps and a val pass, launches per step as
+    UNSORTED_STEP, TF32 off in the UNet's forward and backward; the sorted
+    step of phase 16 beside it.  Returns the launch counts."""
+    from motionpriorcmax_tpu_torch.training.trajectory_net import \
+        create_train_state
+
+    if "lut_cell_ends" in train_batch or "voxel" in train_batch:
+        fail("the unsorted batch carries lut_cell_ends or a voxel grid")
+    state = create_train_state(cfg, "cuda", torch.Generator().manual_seed(0))
+    unet = state.model.unet
+    seen_fwd, seen_bwd = set(), set()
+    hooks = [unet.register_forward_pre_hook(
+        lambda mod, inp: seen_fwd.add(tf32_flags(torch))),
+        next(unet.parameters()).register_hook(
+            lambda grad: seen_bwd.add(tf32_flags(torch)))]
+    try:
+        launches, mean_ms = phase_flow_train(
+            torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
+            UNSORTED_STEP, UNSORTED_VAL, tag="unsorted-train", state=state)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    print(f"[unsorted-train] TF32 (matmul, cudnn) inside the UNet forward "
+          f"{sorted(seen_fwd)}, backward {sorted(seen_bwd)}; step "
+          f"{mean_ms:.1f} ms unsorted against {sorted_ms:.1f} ms cell-sorted "
+          f"(phase 16, this call)")
+    if seen_fwd != {(False, False)} or seen_bwd != {(False, False)}:
+        fail("TF32 was on inside the unsorted train step")
+    return launches, mean_ms
+
+
+def translating_events(rng, flow_yx, n_lines, m):
+    """tests/test_focus_loss.py::make_translating_events: events of a few
+    edges translating with a constant flow over t in [0, 1] -> [1, m, 6]."""
+    fy, fx = flow_yx
+    base_y = rng.uniform(4, LEARN_H - 12, n_lines)
+    base_x = rng.uniform(4, LEARN_W - 12, n_lines)
+    ts = rng.uniform(0, 1, m)
+    which = rng.integers(0, n_lines, m)
+    jitter = rng.uniform(-0.5, 0.5, (m, 2))
+    y = base_y[which] + fy * ts + jitter[:, 0]
+    x = base_x[which] + fx * ts + jitter[:, 1]
+    p = rng.integers(0, 2, m).astype(np.float32)
+    bins = np.clip((ts * LEARN_BINS).astype(np.int32), 0, LEARN_BINS - 1)
+    ev = np.stack([y, x, ts, p, bins, np.ones(m)], axis=-1).astype(np.float32)
+    return ev[None]
+
+
+def learn_loss_cfg(**kw):
+    """tests/test_focus_loss.py::make_cfg, the port's config."""
+    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
+
+    defaults = dict(
+        image_shape=(LEARN_H, LEARN_W), num_tref=1, num_bins=LEARN_BINS,
+        num_knn=4, smooth_weight=0.0, lut_superpixel_size=4,
+        focus_loss_norm="l1", dist_norm="l2", scale_iwe_by_dt=True,
+        mask_image_border=True, polarity_aware_batching=False,
+        interpolation_scheme="mean", smooth_type="on_flow_to_tref",
+        knn_block_size=64)
+    defaults.update(kw)
+    return FocusLossConfig(**defaults)
+
+
+def phase_learning(torch):
+    """The JAX package's two learning checks, through the port on the card,
+    on unsorted events (so each gradient runs row 5): loss-only recovery
+    of a translation (tests/test_flow_recovery.py: 45 Adam(0.5) steps on
+    per-trajectory constant-flow coefficients, exact and softmax; cos >
+    0.95, magnitude ratio > 0.5) and the UNet self-supervised step
+    (tests/test_unet_selfsup_learning.py: 120 train_steps with the voxel
+    grid voted in the step; the mean dense flow within 2.5 px of (5, 7))."""
+    from motionpriorcmax_tpu_torch.losses import (focus_loss,
+                                                  get_reconstruction_times)
+    from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
+    from motionpriorcmax_tpu_torch.ops.grids import tile_mask_positions
+    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
+
+    for method in ("exact", "softmax"):
+        t0 = time.perf_counter()
+        true_flow = np.array([3.0, -4.0], np.float32)
+        events = torch.from_numpy(translating_events(
+            np.random.default_rng(0), tuple(true_flow), 8, 1024)).cuda()
+        cfg = learn_loss_cfg(knn_method=method, num_knn=8, smooth_weight=0.02,
+                             scale_iwe_by_dt=False)
+        pos = torch.from_numpy(tile_mask_positions(
+            (LEARN_H, LEARN_W), 4).astype(np.float32)).cuda()
+        coeffs = torch.zeros(1, pos.shape[0], 2, device="cuda",
+                             requires_grad=True)
+        opt = torch.optim.Adam([coeffs], lr=0.5)
+        gen = torch.Generator().manual_seed(0)
+        before = ss.grid_segment_sum.launches
+        for _ in range(45):
+            times = get_reconstruction_times(cfg, gen, "cuda")
+            traj = pos[None, None] + coeffs[:, None] * times[None, :, None,
+                                                             None]
+            loss = focus_loss(cfg, traj, times, events)[0]
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        launches = ss.grid_segment_sum.launches - before
+        c = coeffs.detach().cpu().numpy()[0]
+        moved = c[np.linalg.norm(c, axis=-1) > 1.0]
+        est = np.median(moved, axis=0) if len(moved) else np.zeros(2)
+        cos = float(est @ true_flow / max(
+            np.linalg.norm(est) * np.linalg.norm(true_flow), 1e-12))
+        mag = float(np.linalg.norm(est) / np.linalg.norm(true_flow))
+        print(f"[learning] loss-only recovery, {method}: {len(moved)} "
+              f"trajectories moved, median flow {est.round(3).tolist()} vs "
+              f"{true_flow.tolist()}: cos {cos:.4f} (> 0.95), magnitude "
+              f"ratio {mag:.3f} (> 0.5); {launches} segment-sum launches in "
+              f"45 steps; {time.perf_counter() - t0:.1f} s")
+        if len(moved) <= 10 or not (cos > 0.95 and mag > 0.5):
+            fail(f"loss-only recovery ({method}) did not recover the flow")
+        if launches != 45:
+            fail(f"expected 45 segment-sum launches, got {launches}")
+
+    t0 = time.perf_counter()
+    true_flow = (5.0, 7.0)
+    ev = translating_events(np.random.default_rng(0), true_flow, 10, 2048)
+    cfg = ttn.TrajectoryNetConfig(image_shape=(LEARN_H, LEARN_W),
+                                  num_bins=LEARN_BINS, num_basis=1,
+                                  patch_size=4, lr=1e-3)
+    loss_cfg = learn_loss_cfg(num_knn=8, smooth_weight=0.003,
+                              knn_method="exact")
+    batch = {"events": torch.from_numpy(ev).cuda()}
+    state = ttn.create_train_state(cfg, "cuda",
+                                   torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    before = ss.grid_segment_sum.launches
+    first, last = [], []
+    for i in range(120):
+        logs = ttn.train_step(state, batch, gen, cfg, loss_cfg)
+        (first if i < 20 else last).append(
+            float(logs["train_losses/focus_loss"]))
+    launches = ss.grid_segment_sum.launches - before
+    voxel = ttn.voxelize_batch_on_device(cfg, batch["events"])
+    flow = ttn.predict_flow(state, voxel, cfg)[0].cpu().numpy()
+    est = np.array([flow[0].mean(), flow[1].mean()])
+    err = float(np.linalg.norm(est - np.asarray(true_flow)))
+    print(f"[learning] UNet self-supervised, 120 steps ({cfg.compute_dtype}, "
+          f"widths {list(cfg.unet_widths)}, exact KNN, unsorted events): "
+          f"focus loss {np.mean(first):.5f} (steps 0-19) -> "
+          f"{np.mean(last):.5f} (20-119), mean dense flow "
+          f"{est.round(3).tolist()} vs {list(true_flow)}: error {err:.3f} px "
+          f"(< 2.5); {launches} segment-sum launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not err < 2.5:
+        fail("the UNet self-supervised step did not recover the flow")
+    if launches != 120:
+        fail(f"expected 120 segment-sum launches, got {launches}")
+
+
+class SyntheticDsec:
+    """In-memory DSEC-like sequence for the loader (the card's machine has
+    no h5py): per window, 1M raw events (uint16 x, y in the sensor, sorted
+    int64 microsecond times, uint8 polarity) and a rectify map with
+    sub-pixel offsets; __getitem__ does what DsecSequence.__getitem__ does
+    after its h5 read: the native pack, the host voxel grid unless
+    `device_voxel`, and the polarity split."""
+
+    def __init__(self, n_windows, n_events, h, w, nb, device_voxel):
+        rng = np.random.default_rng(61)
+        self.h, self.w, self.nb = h, w, nb
+        self.device_voxel = device_voxel
+        gx, gy = np.meshgrid(np.arange(w, dtype=np.float32),
+                             np.arange(h, dtype=np.float32))
+        self.rect = np.ascontiguousarray(np.stack(
+            [gx, gy], -1) + rng.uniform(-0.5, 0.5, (h, w, 2)).astype(
+                np.float32))
+        self.windows = [
+            {"x": rng.integers(0, w, n_events).astype(np.uint16),
+             "y": rng.integers(0, h, n_events).astype(np.uint16),
+             "t": np.sort(rng.integers(0, 100_000, n_events)).astype(np.int64),
+             "p": rng.integers(0, 2, n_events).astype(np.uint8)}
+            for _ in range(n_windows)]
+        self.length = n_windows
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, i):
+        from motionpriorcmax_tpu_torch import native
+        from motionpriorcmax_tpu_torch.data.host_ops import \
+            voxelize_normalized_host
+
+        ev = self.windows[i % len(self.windows)]
+        events = native.pack_dsec_events(ev["x"], ev["y"], ev["t"], ev["p"],
+                                         self.rect, self.h, self.w, self.nb)
+        out = {"file_index": np.asarray(i, np.int64)}
+        if not self.device_voxel:
+            out["voxel"] = voxelize_normalized_host(events, self.nb, self.h,
+                                                    self.w)
+        out["pos_events"] = events[events[:, 3] == 1]
+        out["neg_events"] = events[events[:, 3] == 0]
+        return out
+
+
+def phase_host_data(torch, cfg, loss_cfg, step_ms):
+    """DataLoader batches/s at the flow-train shapes (B=14, capacity 2^20,
+    1M events per window, 480x640, 15 bins; the CLI's 16 workers, pinned
+    batches) for {cell-sorted, unsorted} x {host voxel, device voxel},
+    against the step that consumes such batches; and one batch's collate
+    before (NumPy twins, one producer thread) and after (native, the pool).
+    Fails unless the native ops ran."""
+    from motionpriorcmax_tpu_torch import native
+    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+    from motionpriorcmax_tpu_torch.data.loader import DataLoader
+
+    h, w = cfg.image_shape
+    nb = cfg.num_bins
+    b = DSEC_CONFIG["data"]["batch_size"]
+    workers = DSEC_CONFIG["data"]["num_workers"]
+    sort = (loss_cfg.image_shape, loss_cfg.num_bins,
+            loss_cfg.lut_superpixel_size)
+    t0 = time.perf_counter()
+    data = SyntheticDsec(b, FLOW_EVENTS, h, w, nb, device_voxel=True)
+    print(f"[host-data] {b} windows of {FLOW_EVENTS} raw events made in "
+          f"{time.perf_counter() - t0:.2f} s; {os.cpu_count()} host cores, "
+          f"{workers} loader workers")
+    native.calls.clear()
+    results = {}
+    for sorted_, device_voxel in ((True, False), (False, False),
+                                  (True, True), (False, True)):
+        data.device_voxel = device_voxel
+        data.length = b * (HOST_BATCHES + 1)
+        loader = DataLoader(data, batch_size=b, capacity=FLOW_CAPACITY,
+                            shuffle=False, num_workers=workers,
+                            polarity_aware=True,
+                            lut_cell_sort_params=sort if sorted_ else None,
+                            pin_memory=True)
+        stamps = []
+        t0 = time.perf_counter()
+        for batch in loader:
+            stamps.append(time.perf_counter())
+            if ("lut_cell_ends" in batch) != sorted_ or (
+                    "voxel" in batch) == device_voxel:
+                fail("the loader's batch does not match its case")
+            if not torch.from_numpy(batch["events"]).is_pinned():
+                fail("the loader's batch is not in pinned memory")
+            del batch
+        first = stamps[0] - t0
+        rate = HOST_BATCHES / (stamps[-1] - stamps[0])
+        label = (f"{'cell-sorted' if sorted_ else 'unsorted'}, "
+                 f"{'device' if device_voxel else 'host'} voxel")
+        step, step_name = step_ms[(sorted_, device_voxel)]
+        keeps = rate * step / 1e3 >= 1.0
+        print(f"[host-data] {label}: first batch {first:.2f} s, then "
+              f"{rate:.3f} batches/s ({1e3 / rate:.0f} ms per batch) against "
+              f"the {step_name} step of {step:.1f} ms on the card: the loader "
+              f"{'keeps up' if keeps else 'does NOT keep up'} "
+              f"({rate * step / 1e3:.2f} batches per step)")
+        results[label] = {"batches_per_s": rate, "step_ms": step,
+                          "keeps_up": keeps}
+    if not (native.calls["pack_dsec_events"] and
+            native.calls["lut_cell_sort_segment"] and
+            native.calls["voxelize_trilinear"]):
+        fail(f"the native host ops did not run: {dict(native.calls)}")
+    print(f"[host-data] native calls {dict(native.calls)}")
+
+    # One batch's collate: the NumPy twins in one thread (the loader before
+    # this change) against the native ops on the pool (after it).
+    data.device_voxel = True
+    samples = [data[i] for i in range(b)]
+    t0 = time.perf_counter()
+    with native.numpy_only():
+        collate_fixed_capacity(samples, FLOW_CAPACITY, polarity_aware=True,
+                               lut_cell_sort_params=sort)
+    before = time.perf_counter() - t0
+
+    class Ready:
+        def __len__(self):
+            return b
+
+        def __getitem__(self, i):
+            return samples[i]
+
+    t0 = time.perf_counter()
+    next(iter(DataLoader(Ready(), batch_size=b, capacity=FLOW_CAPACITY,
+                         shuffle=False, num_workers=workers,
+                         polarity_aware=True, lut_cell_sort_params=sort,
+                         pin_memory=True)))
+    after = time.perf_counter() - t0
+    print(f"[host-data] one batch's collate (pad, polarity packing, LUT-cell "
+          f"sort, stack) of {b} ready samples: {before:.2f} s with the NumPy "
+          f"twins in one thread, {after:.2f} s native on the pool")
+    results["collate_s"] = {"numpy_one_thread": before, "native_pool": after}
+    return results
+
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -1936,6 +2442,8 @@ FLOW_SOURCES = {
         "motionpriorcmax_tpu/ops/pallas/softmax_interp.py:357"),
     "voxel_vote": ("motionpriorcmax_tpu_torch/csrc/voxel_vote.cu",
                    "motionpriorcmax_tpu/ops/pallas/voxel_vote.py:242"),
+    "grid_segment_sum": ("motionpriorcmax_tpu_torch/csrc/segment_sum.cu",
+                         "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:481"),
 }
 FLOW_WORK = {
     "iwe_vote_fwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted "
@@ -1952,6 +2460,10 @@ FLOW_WORK = {
                           "d vals",
     "voxel_vote": "B=14, M=2^20 cell-sorted events -> 14 x 15 x 480 x 640 "
                   "(unsorted_*: the same events in random order)",
+    "grid_segment_sum": "B=14, M=2^20 unsorted events (padding skipped), "
+                        "LUT [1800, 160, 2] f32 (library: torch.gather's "
+                        "backward, scatter_add_; traj_*: [6, 3936, 128, 2], "
+                        "2^19 events per sample)",
 }
 
 
@@ -1993,12 +2505,12 @@ def main() -> int:
     # flow-train, exact KNN and host voxel grids
     t_flow = time.perf_counter()
     fcfg, floss = flow_configs(DSEC_CONFIG)
-    train_batch, val_batch = phase_flow_batch(
+    train_batch, val_batch, unsorted_train, unsorted_val = phase_flow_batch(
         fcfg, floss, DSEC_CONFIG["data"]["batch_size"])
     numbers = phase_flow_kernels(torch, fcfg, floss, train_batch)
-    flow_launches = phase_flow_train(torch, fcfg, floss, train_batch,
-                                     val_batch, smi_line, EXACT_STEP,
-                                     EXACT_VAL)
+    flow_launches, exact_ms = phase_flow_train(
+        torch, fcfg, floss, train_batch, val_batch, smi_line, EXACT_STEP,
+        EXACT_VAL)
     phase_flow_breakdown(torch, fcfg, floss, train_batch)
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch)
@@ -2012,9 +2524,9 @@ def main() -> int:
     train_batch.pop("voxel")
     val_batch.pop("voxel")
     numbers.update(phase_softmax_kernels(torch, sloss, train_batch))
-    soft_launches = phase_flow_train(torch, scfg, sloss, train_batch,
-                                     val_batch, smi_line, SOFTMAX_STEP,
-                                     SOFTMAX_VAL, tag="softmax-train")
+    soft_launches, soft_ms = phase_flow_train(
+        torch, scfg, sloss, train_batch, val_batch, smi_line, SOFTMAX_STEP,
+        SOFTMAX_VAL, tag="softmax-train")
     del val_batch
     phase_flow_breakdown(torch, scfg, sloss, train_batch,
                          tag="softmax-breakdown")
@@ -2055,6 +2567,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_traj_card_vs_cpu(torch)
     print(f"[done] traj-train phases {time.perf_counter() - t_traj:.1f} s")
+
+    # flow-train on unsorted events (softmax, device voxel): row 5
+    t_uns = time.perf_counter()
+    numbers["grid_segment_sum"] = phase_segment_sum(torch, sloss,
+                                                    unsorted_train)
+    uns_launches, uns_ms = phase_unsorted_train(
+        torch, scfg, sloss, unsorted_train, unsorted_val, smi_line, soft_ms)
+    del unsorted_val
+    phase_flow_breakdown(torch, scfg, sloss, unsorted_train,
+                         tag="unsorted-breakdown")
+    del unsorted_train
+    torch.cuda.empty_cache()
+    phase_flow_card_vs_cpu(torch, {"knn_method": "softmax"}, True,
+                           UNSORTED_STEP, tag="unsorted-card-vs-cpu",
+                           cell_sort=False)
+    phase_learning(torch)
+    print(f"[done] unsorted flow-train phases "
+          f"{time.perf_counter() - t_uns:.1f} s")
+    t_host = time.perf_counter()
+    phase_host_data(torch, fcfg, floss, {
+        (True, False): (exact_ms, "exact-KNN host-voxel (phase 11)"),
+        (False, False): (exact_ms, "exact-KNN host-voxel (phase 11, sorted)"),
+        (True, True): (soft_ms, "softmax device-voxel (phase 16)"),
+        (False, True): (uns_ms, "unsorted softmax device-voxel (phase 27)")})
+    print(f"[done] host data phase {time.perf_counter() - t_host:.1f} s")
     kernels.append({
         "name": "corr_window_lookup_bwd", "route": "cuda",
         "source": "motionpriorcmax_tpu_torch/csrc/corr_window.cu",
@@ -2068,11 +2605,15 @@ def main() -> int:
                 "384x512, f32 volume (library: F.grid_sample's backward, "
                 "d input and d grid)",
     })
-    for kname in FLOW_KERNELS + SOFTMAX_KERNELS:
+    for kname in FLOW_KERNELS + SOFTMAX_KERNELS + ("grid_segment_sum",):
         source, replaces = FLOW_SOURCES[kname]
-        runs = soft_launches if kname in SOFTMAX_KERNELS else flow_launches
+        runs = (uns_launches if kname == "grid_segment_sum" else
+                soft_launches if kname in SOFTMAX_KERNELS else flow_launches)
         entry = {"name": kname, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": runs[kname]}
+        if kname in ("iwe_vote_fwd", "iwe_vote_bwd"):
+            # Row 4: the same kernel on the unsorted step's events.
+            entry["unsorted_step_launches"] = uns_launches[kname]
         entry.update(numbers[kname])
         entry["work"] = FLOW_WORK[kname]
         kernels.append(entry)

@@ -79,7 +79,8 @@ def cmd_flow_train(args) -> int:
                           polarity_aware=pab, pos_capacity=pos_capacity,
                           lut_cell_sort_params=(
                               loss_cfg.image_shape, loss_cfg.num_bins,
-                              loss_cfg.lut_superpixel_size))
+                              loss_cfg.lut_superpixel_size),
+                          pin_memory=device.type == "cuda")
 
     resume_state = None
     if args.ckp_path:
@@ -206,7 +207,9 @@ def cmd_traj_val(args) -> int:
     from ..data.evimo2 import Evimo2Provider
     from ..device import resolve_device
     from ..training.checkpoint import (extract_model_weights,
-                                       load_raft_spline_weights)
+                                       find_checkpoint_dir,
+                                       load_raft_spline_weights,
+                                       restore_model_weights)
     from ..training.raft_spline import create_raft_model
 
     try:
@@ -217,15 +220,24 @@ def cmd_traj_val(args) -> int:
     cfg = raft_config_from_tree(cfg_tree["model"])
 
     ckpt = cfg_tree.get("checkpoint")
+    ckpt_dir = None
     if ckpt:
         # The JAX CLI runs on random weights when this path is missing; the
         # port refuses instead.
         if not Path(str(ckpt)).exists():
             raise SystemExit(f"checkpoint {ckpt} does not exist")
-        if not str(ckpt).endswith((".pth", ".ckpt")):
+        if Path(str(ckpt)).is_dir():
+            # The port's traj-train output: its checkpoints/ or the workdir.
+            ckpt_dir = find_checkpoint_dir(str(ckpt))
+            if ckpt_dir is None:
+                raise SystemExit(
+                    f"checkpoint {ckpt}: no index.json and step_*.pt of the "
+                    "port's traj-train here or in its checkpoints/; orbax "
+                    "checkpoints of the JAX package are not readable")
+        elif not str(ckpt).endswith((".pth", ".ckpt")):
             raise SystemExit(
                 f"checkpoint {ckpt}: the port reads reference .ckpt/.pth "
-                "files; orbax checkpoints of the JAX package are not readable")
+                "files and its own traj-train checkpoint directories")
 
     ds = cfg_tree["dataset"]
     dataset_name = ds.get("name", "evimo2")
@@ -244,7 +256,10 @@ def cmd_traj_val(args) -> int:
         raise SystemExit(f"unknown dataset {dataset_name!r}")
 
     model = create_raft_model(cfg, device, torch.Generator().manual_seed(0))
-    if ckpt:
+    if ckpt_dir is not None:
+        # The latest step, as JAX restore_checkpoint(step=None) picks it.
+        restore_model_weights(str(ckpt_dir), model)
+    elif ckpt:
         # Published reference checkpoint: Lightning RAFTSplineModule whose
         # model attribute is 'net' (src/modules/raft_spline.py:30).
         load_raft_spline_weights(model, extract_model_weights(str(ckpt),
@@ -333,7 +348,8 @@ def cmd_traj_train(args) -> int:
         num_workers=cfg_tree.get("hardware", {}).get("num_workers", 8),
         lut_cell_sort_params=None if supervised else (
             loss_cfg.image_shape, loss_cfg.num_bins,
-            loss_cfg.lut_superpixel_size))
+            loss_cfg.lut_superpixel_size),
+        pin_memory=device.type == "cuda")
 
     validate = None
     if args.val_every > 0:

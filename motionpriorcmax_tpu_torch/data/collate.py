@@ -4,12 +4,14 @@ Events are padded (or tail-truncated) to a static capacity, with the 6th
 'valid' column marking real rows.  Polarity-aware batching packs positives
 first at a static positive capacity (capacity // 2 by default).  With
 `lut_cell_sort_params` events are sorted by flow-LUT cell within each
-polarity segment and the batch carries 'lut_cell_ends'.
+polarity segment and the batch carries 'lut_cell_ends'.  Each sample's
+share (`prepare_sample`) is apart from the stack (`stack_samples`), so the
+loader runs it on its pool threads.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -22,6 +24,68 @@ def pad_events(events: np.ndarray, capacity: int) -> np.ndarray:
     out[:n, :5] = events[:n, :5]
     out[:n, 5] = 1.0
     return out
+
+
+def prepare_sample(sample: Dict[str, np.ndarray], capacity: int,
+                   polarity_aware: bool = False,
+                   pos_capacity: Optional[int] = None,
+                   lut_cell_sort_params: Optional[tuple] = None
+                   ) -> Dict[str, np.ndarray]:
+    """One sample's share of the collate: its events padded (polarity
+    packed) to the capacity and, with `lut_cell_sort_params`, cell-sorted
+    with their 'lut_cell_ends'; 'num_pos_events' with polarity_aware.  The
+    other entries pass through.  `stack_samples` of prepared samples is
+    `collate_fixed_capacity` of the samples."""
+    out = {k: v for k, v in sample.items()
+           if k not in ("events", "pos_events", "neg_events")}
+    if "events" not in sample and "pos_events" not in sample:
+        return out
+    npos = -1
+    if polarity_aware:
+        if pos_capacity is None:
+            pos_capacity = capacity // 2
+        ev = np.concatenate([pad_events(sample["pos_events"], pos_capacity),
+                             pad_events(sample["neg_events"],
+                                        capacity - pos_capacity)])
+        out["num_pos_events"] = npos = pos_capacity
+    else:
+        ev = pad_events(sample["events"], capacity)
+    if lut_cell_sort_params is not None:
+        from .host_ops import lut_cell_sort
+
+        image_shape, num_bins, superpixel = lut_cell_sort_params
+        ev, out["lut_cell_ends"] = lut_cell_sort(
+            ev, image_shape, num_bins, superpixel, num_pos_events=npos)
+    out["events"] = ev
+    return out
+
+
+_STACKED = ("lut_cell_ends", "events", "voxel", "forward_flow", "flow_valid",
+            "timestamp", "file_index", "ev_repr", "flow", "flow_timestamps",
+            "id_mask")
+
+
+def stack_samples(prepared: List[Dict[str, np.ndarray]],
+                  alloc: Optional[Callable] = None) -> Dict[str, np.ndarray]:
+    """Stack prepared samples into the batch.  `alloc(shape, dtype)` gives
+    the output arrays (pinned host memory for the loader), else np.stack
+    allocates them."""
+    batch: Dict[str, np.ndarray] = {}
+    if "num_pos_events" in prepared[0]:
+        batch["num_pos_events"] = prepared[0]["num_pos_events"]
+    for key in _STACKED:
+        if key not in prepared[0]:
+            continue
+        arrs = [np.asarray(s[key]) for s in prepared]
+        if alloc is None:
+            batch[key] = np.stack(arrs)
+        else:
+            out = alloc((len(arrs),) + arrs[0].shape,
+                        np.result_type(*arrs))
+            batch[key] = np.stack(arrs, out=out)
+    if "name" in prepared[0]:
+        batch["name"] = [s["name"] for s in prepared]
+    return batch
 
 
 def collate_fixed_capacity(samples: List[Dict[str, np.ndarray]],
@@ -46,34 +110,6 @@ def collate_fixed_capacity(samples: List[Dict[str, np.ndarray]],
     Returns:
       the batch; 'num_pos_events' is a Python int with polarity_aware.
     """
-    batch: Dict[str, np.ndarray] = {}
-    if "events" not in samples[0] and "pos_events" not in samples[0]:
-        ev = None
-    elif polarity_aware:
-        if pos_capacity is None:
-            pos_capacity = capacity // 2
-        neg_capacity = capacity - pos_capacity
-        ev = [np.concatenate([pad_events(s["pos_events"], pos_capacity),
-                              pad_events(s["neg_events"], neg_capacity)])
-              for s in samples]
-        batch["num_pos_events"] = pos_capacity
-    else:
-        ev = [pad_events(s["events"], capacity) for s in samples]
-    if ev is not None:
-        if lut_cell_sort_params is not None:
-            from .host_ops import lut_cell_sort
-
-            image_shape, num_bins, superpixel = lut_cell_sort_params
-            npos = batch.get("num_pos_events", -1)
-            pairs = [lut_cell_sort(e, image_shape, num_bins, superpixel,
-                                   num_pos_events=npos) for e in ev]
-            ev = [p[0] for p in pairs]
-            batch["lut_cell_ends"] = np.stack([p[1] for p in pairs])
-        batch["events"] = np.stack(ev)
-    for key in ("voxel", "forward_flow", "flow_valid", "timestamp",
-                "file_index", "ev_repr", "flow", "flow_timestamps", "id_mask"):
-        if key in samples[0]:
-            batch[key] = np.stack([np.asarray(s[key]) for s in samples])
-    if "name" in samples[0]:
-        batch["name"] = [s["name"] for s in samples]
-    return batch
+    return stack_samples([prepare_sample(s, capacity, polarity_aware,
+                                         pos_capacity, lut_cell_sort_params)
+                          for s in samples])

@@ -6,7 +6,7 @@ opened).
   * 100 ms windows from the image timestamps [::2][1:-1] (train) or
     flow/forward_timestamps.txt (val)
   * events.h5 slicing through ms_to_idx plus an exact searchsorted refine
-  * per-event rectification map lookup
+  * per-event rectification map lookup (native C++ or NumPy)
   * events packed as (y, x, t_norm, p, bin) float32 rows, optionally split
     by polarity, optionally voxelized on the host
   * GT flow decoded from the 16-bit PNGs
@@ -105,6 +105,7 @@ class DsecSequence:
         self.event_slicer = EventSlicer(self._h5f)
         with h5py.File(ev_dir / "rectify_map.h5", "r") as rf:
             self.rectify_ev_map = rf["rectify_map"][()]
+        self._rectify_f32 = None
         if phase == "train":
             self._load_train(seq_path)
         elif phase == "val":
@@ -142,7 +143,17 @@ class DsecSequence:
 
     def _pack_events(self, ev: Dict[str, np.ndarray]) -> np.ndarray:
         """Rectify, normalize t to [0, 1], bin, drop out-of-image events ->
-        [M, 5] (y, x, t, p, bin) f32."""
+        [M, 5] (y, x, t, p, bin) f32: the native pack when it is built (as
+        the JAX reader does), else its NumPy twin."""
+        from .. import native
+
+        if native.available():
+            if self._rectify_f32 is None:
+                self._rectify_f32 = np.ascontiguousarray(
+                    self.rectify_ev_map, np.float32)
+            return native.pack_dsec_events(
+                ev["x"], ev["y"], ev["t"], ev["p"], self._rectify_f32,
+                self.height, self.width, self.num_bins)
         xy_rect = self.rectify_ev_map[ev["y"], ev["x"]]
         x_rect, y_rect = xy_rect[..., 0], xy_rect[..., 1]
         t = (ev["t"] - ev["t"].min()) / max(ev["t"].max() - ev["t"].min(), 1)

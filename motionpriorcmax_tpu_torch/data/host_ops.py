@@ -7,8 +7,10 @@
   * lut_cell_sort         events sorted by flow-LUT cell + run boundaries
   * voxelize_normalized_host  the DSEC loader's voxel grid (normalized t)
 
-The JAX package's C++ `native/` paths are not copied: the NumPy paths here
-are its semantics-identical fallbacks.
+The cell sort and the voxel vote run the port's native C++ (`native/`,
+built on first use) where the JAX package runs its own, and the NumPy twins
+here otherwise (no compiler, or inside `native.numpy_only()`): the sort is
+the same either way; the native vote sums in f32, its twin in f64.
 """
 
 from __future__ import annotations
@@ -121,12 +123,23 @@ def lut_cell_sort(events: np.ndarray, image_shape, num_bins: int,
     boundaries of both halves are concatenated: cell_ends [S * num_cells]
     int32, globally ascending, entry j covering events [ends[j-1], ends[j]).
     """
+    from .. import native
+
     m = len(events)
     events = np.ascontiguousarray(events, np.float32)
     bounds = ([0] if num_pos_events < 0 else [0, num_pos_events]) + [m]
-    keys, num_cells = lut_cell_keys(events, image_shape, num_bins, superpixel)
     out = np.empty_like(events)
     ends_all = []
+    if native.available():
+        # A stable counting sort in C++, O(m + cells) per segment.
+        h, w = image_shape
+        hq, wq = -(-h // superpixel), -(-w // superpixel)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            out[lo:hi], ends = native.lut_cell_sort_segment(
+                events[lo:hi], hq, wq, num_bins, superpixel)
+            ends_all.append(lo + ends.astype(np.int64))
+        return out, np.concatenate(ends_all).astype(np.int32)
+    keys, num_cells = lut_cell_keys(events, image_shape, num_bins, superpixel)
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         order = np.argsort(keys[lo:hi], kind="stable")
         out[lo:hi] = events[lo:hi][order]
@@ -158,8 +171,11 @@ def voxelize_normalized_host(events: np.ndarray, num_bins: int, height: int,
                              width: int, norm_type="mean_std",
                              quantile: float = 0.0) -> np.ndarray:
     """(y, x, t, p, bin[, valid]) rows with t in [0, 1] -> [nbins, H, W]:
-    trilinear vote, quantile clamp, then mean/std over the nonzero voxels
-    (or max-abs) normalization."""
+    trilinear vote (native, f32 sums; else the NumPy twin, f64 sums),
+    quantile clamp, then mean/std over the nonzero voxels (or max-abs)
+    normalization."""
+    from .. import native
+
     y = events[:, 0].astype(np.float32)
     x = events[:, 1].astype(np.float32)
     t_norm = events[:, 2].astype(np.float32) * (num_bins - 1)
@@ -167,7 +183,12 @@ def voxelize_normalized_host(events: np.ndarray, num_bins: int, height: int,
     if events.shape[1] > 5:
         keep = events[:, 5] > 0
         y, x, t_norm, p = y[keep], x[keep], t_norm[keep], p[keep]
-    grid = _voxel_grid_tnorm_numpy(x, y, t_norm, p, num_bins, height, width)
+    if native.available():
+        grid = native.voxelize_trilinear(x, y, t_norm, p, num_bins, height,
+                                         width)
+    else:
+        grid = _voxel_grid_tnorm_numpy(x, y, t_norm, p, num_bins, height,
+                                       width)
     if quantile > 0:
         thr = np.quantile(np.abs(grid), 1.0 - quantile)
         grid = np.where(np.abs(grid) > thr,

@@ -1,14 +1,18 @@
-"""Threaded host data loader: shuffle, parallel sample fetch and the
-fixed-capacity collate (JAX: data/loader.py).
+"""Threaded host data loader: shuffle, parallel sample fetch and collate
+(JAX: data/loader.py).
 
-A producer thread fetches each batch's samples with a thread pool (h5py
-releases the GIL while it reads) and collates them; the consumer takes
-numpy batches from a bounded queue, so the host prepares the next batch
-while the card runs the current step.
+A pool of threads reads each sample (h5py releases the GIL while it reads)
+and does the sample's own share of the collate: padding, polarity packing
+and the LUT-cell sort, with the native C++ ops, which release the GIL too
+(`collate.prepare_sample`).  A producer thread keeps the next batch's
+samples in the pool while it stacks the current one, optionally into
+pinned host memory, and hands numpy batches to the consumer through a
+bounded queue, so the host prepares batches while the card runs steps.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -16,7 +20,17 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
-from .collate import collate_fixed_capacity
+from .collate import prepare_sample, stack_samples
+
+
+def pinned_empty(shape, dtype) -> np.ndarray:
+    """An uninitialized numpy array in pinned (page-locked) host memory,
+    from which a copy to the card runs asynchronously."""
+    import torch
+
+    t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                    pin_memory=True)
+    return t.numpy()
 
 
 class DataLoader:
@@ -28,7 +42,12 @@ class DataLoader:
                  pos_capacity: Optional[int] = None, drop_last: bool = True,
                  seed: int = 0, prefetch: int = 2,
                  collate_fn: Optional[Callable] = None,
-                 lut_cell_sort_params: Optional[tuple] = None):
+                 lut_cell_sort_params: Optional[tuple] = None,
+                 pin_memory: bool = False):
+        """`collate_fn(samples) -> batch` replaces the fixed-capacity
+        collate and then runs in the producer thread; `pin_memory` stacks
+        the default collate's arrays into pinned host memory (for a card:
+        training/loop.py::to_device then copies them asynchronously)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,11 +55,24 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
-        self.collate_fn = collate_fn or (
-            lambda samples: collate_fixed_capacity(
-                samples, capacity, polarity_aware, pos_capacity,
-                lut_cell_sort_params=lut_cell_sort_params))
+        self.collate_fn = collate_fn
+        self._collate_kw = dict(capacity=capacity,
+                                polarity_aware=polarity_aware,
+                                pos_capacity=pos_capacity,
+                                lut_cell_sort_params=lut_cell_sort_params)
+        self._alloc = pinned_empty if pin_memory else None
         self._epoch = 0
+
+    def _fetch(self, idx: int):
+        """A pool task: the sample, prepared unless a collate_fn is given."""
+        sample = self.dataset[idx]
+        return sample if self.collate_fn else prepare_sample(
+            sample, **self._collate_kw)
+
+    def _stack(self, items) -> Dict[str, np.ndarray]:
+        if self.collate_fn:
+            return self.collate_fn(items)
+        return stack_samples(items, self._alloc)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -62,12 +94,20 @@ class DataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    # The next batch's samples are in the pool while this
+                    # one is stacked and queued.
+                    pending = collections.deque()
                     for idxs in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__,
-                                                idxs))
-                        out_q.put(self.collate_fn(samples))
+                        pending.append([pool.submit(self._fetch, j)
+                                        for j in idxs])
+                        if len(pending) > 1:
+                            out_q.put(self._stack(
+                                [f.result() for f in pending.popleft()]))
+                    while pending and not stop.is_set():
+                        out_q.put(self._stack(
+                            [f.result() for f in pending.popleft()]))
                 out_q.put(None)
             except BaseException as exc:      # re-raised by the consumer
                 out_q.put(exc)

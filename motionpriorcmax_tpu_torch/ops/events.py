@@ -3,8 +3,9 @@ gather (JAX: ops/events.py).
 
 Events are fixed-capacity tensors [..., M, 6] with float32 rows
 (y, x, t, p, bin, valid); padding rows carry valid = 0.  The voxel vote,
-the IWE vote and the sorted LUT gather go through the hand-written kernels
-of `ops/cuda/` (`voxel_vote.py`, `iwe_vote.py`, `lut_gather.py`): on CUDA
+the IWE vote and the LUT gather's backward go through the hand-written
+kernels of `ops/cuda/` (`voxel_vote.py`, `iwe_vote.py`, `lut_gather.py`,
+`segment_sum.py`): on CUDA
 tensors they launch the kernels, on CPU tensors they run the kernels' plain
 versions.
 """
@@ -18,6 +19,7 @@ import torch
 
 from .cuda.iwe_vote import iwe_vote
 from .cuda.lut_gather import lut_gather
+from .cuda.segment_sum import grid_gather_any_order
 from .cuda.voxel_vote import voxel_vote
 
 EVENT_COLS = ("y", "x", "t", "p", "bin", "valid")
@@ -138,15 +140,13 @@ def grid_gather(grid: torch.Tensor, rows_idx: torch.Tensor,
         of equal flat cell id rows * X + cols, events sorted within each of
         S segments (data/host_ops.py::lut_cell_sort).  Given, the lookup
         and its backward are the LUT-gather kernels (JAX 'pallas_sorted'
-        forward, 'sorted_pallas' backward); None takes plain indexing, whose
-        backward is PyTorch's scatter-add (JAX 'xla' / 'native').
+        forward, 'sorted_pallas' backward); None, events in any order: a
+        plain gather whose backward is the any-order segment-sum kernel
+        (JAX 'xla' forward, 'pallas' / 'native' backward).
 
     Returns:
       [B, M, C].
     """
     if cell_ends is not None:
         return lut_gather(grid, rows_idx, cols_idx, cell_ends)
-    b, r, x, c = grid.shape
-    flat = rows_idx.long() * x + cols_idx.long()
-    return torch.gather(grid.reshape(b, r * x, c), 1,
-                        flat[..., None].expand(-1, -1, c))
+    return grid_gather_any_order(grid, rows_idx, cols_idx)

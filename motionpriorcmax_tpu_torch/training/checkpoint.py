@@ -268,6 +268,33 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
     return out
 
 
+def _pick_step(path: Path, step: Optional[int], best: bool) -> int:
+    """The step to restore from <path>/index.json: `step` itself, else the
+    best-metric one with `best`, else the latest retained."""
+    index_path = path / _INDEX
+    if not index_path.is_file():
+        raise FileNotFoundError(f"no checkpoint index under {path}")
+    index = json.loads(index_path.read_text())
+    if step is not None:
+        return step
+    if not index:
+        raise FileNotFoundError(f"no checkpoints under {path}")
+    scored = [e for e in index if e["metric"] is not None]
+    if best and scored:
+        return min(scored, key=lambda e: e["metric"])["step"]
+    return max(e["step"] for e in index)
+
+
+def find_checkpoint_dir(path: str) -> Optional[Path]:
+    """The directory of `save_checkpoint` at `path` or at its
+    `checkpoints/` (a workdir of flow-train or traj-train); None when
+    neither holds an index and a step_*.pt."""
+    for cand in (Path(path), Path(path) / "checkpoints"):
+        if (cand / _INDEX).is_file() and any(cand.glob("step_*.pt")):
+            return cand
+    return None
+
+
 def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
                        best: bool = False) -> Tuple[Any, int]:
     """Load a checkpoint of `save_checkpoint` into `state` in place.
@@ -275,18 +302,7 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
     `step` picks one; else the best-metric one with `best`, else the
     latest.  Returns (state, step)."""
     path = Path(ckpt_dir)
-    index_path = path / _INDEX
-    if not index_path.is_file():
-        raise FileNotFoundError(f"no checkpoint index under {path}")
-    index = json.loads(index_path.read_text())
-    if step is None:
-        if not index:
-            raise FileNotFoundError(f"no checkpoints under {path}")
-        scored = [e for e in index if e["metric"] is not None]
-        if best and scored:
-            step = min(scored, key=lambda e: e["metric"])["step"]
-        else:
-            step = max(e["step"] for e in index)
+    step = _pick_step(path, step, best)
     device = next(state.model.parameters()).device
     blob = torch.load(path / f"step_{step}.pt", map_location=device,
                       weights_only=True)
@@ -296,3 +312,18 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
         state.scheduler.load_state_dict(blob["scheduler"])
     state.step = int(blob["step"])
     return state, step
+
+
+def restore_model_weights(ckpt_dir: str, model: torch.nn.Module,
+                          step: Optional[int] = None, best: bool = False
+                          ) -> int:
+    """Load only the model of a `save_checkpoint` checkpoint, strictly (the
+    latest step unless `step` or `best` says otherwise, as
+    `restore_checkpoint`).  Returns the step."""
+    path = Path(ckpt_dir)
+    step = _pick_step(path, step, best)
+    device = next(model.parameters()).device
+    blob = torch.load(path / f"step_{step}.pt", map_location=device,
+                      weights_only=True)
+    model.load_state_dict(blob["model"], strict=True)
+    return step

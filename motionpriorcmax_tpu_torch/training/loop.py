@@ -57,15 +57,24 @@ class ScalarLogger:
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     """The batch's arrays as tensors on `device` (host keys dropped); a
-    forward_flow becomes gt_flow and flow_valid a bool mask."""
+    forward_flow becomes gt_flow.
+
+    A copy to a card goes from pinned host memory, so it runs on the
+    current stream without holding the host: arrays the loader stacked
+    into pinned memory (`DataLoader(pin_memory=True)`) are copied as they
+    are, others through a pinned staging copy (torch's caching host
+    allocator keeps it until the copy is done)."""
+    dev = torch.device(device)
     out = {}
     for key, val in batch.items():
         if key in _HOST_KEYS:
             continue
         t = torch.from_numpy(np.asarray(val))
+        if dev.type == "cuda" and not t.is_pinned():
+            t = t.pin_memory()
         if key == "forward_flow":
             key = "gt_flow"
-        out[key] = t.to(device, non_blocking=True)
+        out[key] = t.to(dev, non_blocking=True)
     return out
 
 

@@ -233,7 +233,7 @@ def test_flow_train_cli_device_voxelize(tmp_path, monkeypatch):
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(yaml.safe_dump(config))
     host_voxelize, voxel_keys = [], []
-    real_provider, real_collate = dsec.DsecDatasetProvider, loader.collate_fixed_capacity
+    real_provider, real_collate = dsec.DsecDatasetProvider, loader.stack_samples
 
     def provider(*a, **k):
         host_voxelize.append(k["host_voxelize"])
@@ -245,7 +245,7 @@ def test_flow_train_cli_device_voxelize(tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(dsec, "DsecDatasetProvider", provider)
-    monkeypatch.setattr(loader, "collate_fixed_capacity", collate)
+    monkeypatch.setattr(loader, "stack_samples", collate)
     workdir = tmp_path / "run"
     assert main(["flow-train", "--config", str(cfg_path), "--workdir",
                  str(workdir), "--event-capacity", "4096", "--log-every", "1",

@@ -97,14 +97,11 @@ def test_multiflow_reader_and_augmentor_match_jax(multiflow_tree):
             _same_sample(port[0], ref[0])
 
 
-def test_traj_train_selfsup_cli_on_cpu(evimo2_tree, tmp_path):
-    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
-    from motionpriorcmax_tpu_torch.training.checkpoint import \
-        restore_checkpoint
-    from motionpriorcmax_tpu_torch.training.raft_spline import (
-        RAFTTrainConfig, create_raft_train_state)
-
-    workdir = tmp_path / "run"
+@pytest.fixture(scope="module")
+def selfsup_run(evimo2_tree, tmp_path_factory):
+    """One self-supervised traj-train CLI step with a validation pass; its
+    workdir."""
+    workdir = tmp_path_factory.mktemp("selfsup") / "run"
     rc = main(["traj-train", "--device", "cpu",
                "--config-dir", "config/trajectory_inference",
                "--workdir", str(workdir), "--max-steps", "1",
@@ -114,6 +111,17 @@ def test_traj_train_selfsup_cli_on_cpu(evimo2_tree, tmp_path):
                "checkpoint=/unused", f"dataset.path={evimo2_tree}",
                "loss.lut_superpixel_size=16", "loss.num_knn=4", *FAST])
     assert rc == 0
+    return workdir
+
+
+def test_traj_train_selfsup_cli_on_cpu(selfsup_run):
+    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
+    from motionpriorcmax_tpu_torch.training.checkpoint import \
+        restore_checkpoint
+    from motionpriorcmax_tpu_torch.training.raft_spline import (
+        RAFTTrainConfig, create_raft_train_state)
+
+    workdir = selfsup_run
     recs = [json.loads(line) for line in
             (workdir / "scalars.jsonl").read_text().splitlines()]
     losses = [r["train_losses/total"] for r in recs
@@ -130,6 +138,44 @@ def test_traj_train_selfsup_cli_on_cpu(evimo2_tree, tmp_path):
     state, step = restore_checkpoint(str(workdir / "checkpoints"), state,
                                      best=True)
     assert step == 1 and state.scheduler.last_epoch == 1
+
+
+@pytest.mark.parametrize("where", ["workdir", "checkpoints"])
+def test_traj_val_restores_traj_train_checkpoint_dir(selfsup_run, evimo2_tree,
+                                                     where, capsys):
+    # traj-val on traj-train's output restores its latest step: the metrics
+    # of traj-train's own validation pass with the in-memory model, on the
+    # same eval split and batch size, up to traj-val's 5-decimal print.
+    ckpt = selfsup_run if where == "workdir" else selfsup_run / "checkpoints"
+    recs = [json.loads(line) for line in
+            (selfsup_run / "scalars.jsonl").read_text().splitlines()]
+    want = next(r for r in recs if "val/masked_TEPE" in r)
+    capsys.readouterr()
+    assert main(["traj-val", "--device", "cpu",
+                 "--config-dir", "config/trajectory_inference",
+                 "experiment=raft-spline_evimo2-300ms_ours-selfsup",
+                 f"checkpoint={ckpt}", f"dataset.path={evimo2_tree}",
+                 "batch_size=2", "model.num_iter.test=1",
+                 "model.bezier_degree=2"]) == 0
+    out = capsys.readouterr().out
+    got = {k: float(v) for k, v in (line.split(": ") for line in
+                                    out.splitlines() if ": " in line)}
+    keys = [k for k in want if k.startswith("val/")]
+    assert keys and set(keys) <= set(got)
+    for k in keys:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=5e-6,
+                                   err_msg=k)
+
+
+def test_traj_val_refuses_a_directory_without_checkpoints(tmp_path):
+    # An empty directory is no checkpoint: refused, never random weights.
+    (tmp_path / "run" / "checkpoints").mkdir(parents=True)
+    with pytest.raises(SystemExit, match="step_"):
+        main(["traj-val", "--device", "cpu",
+              "--config-dir", "config/trajectory_inference",
+              "experiment=raft-spline_evimo2-300ms_ours-selfsup",
+              f"checkpoint={tmp_path / 'run'}",
+              f"dataset.path={tmp_path}"])
 
 
 def test_traj_train_supervised_cli_on_cpu(multiflow_tree, tmp_path):
