@@ -12,16 +12,19 @@ Phases, one or more lines each; any failure exits non-zero:
      register report, and beside them the native host library
      (motionpriorcmax_tpu_torch/native/event_ops.cc, g++)
   traj-val (RAFT-Spline Tab2L5 serving, EVIMO2 geometry):
-  3. kernel vs plain: the corr-window kernel against its plain PyTorch
-     version at the four pyramid-level shapes of the EVIMO2 batch-8 path,
-     f32 and bf16 volumes, with coordinates outside the maps
-  4. timing (CUDA events, L2 flushed between launches): kernel, its memory
-     bound, the plain version, and F.grid_sample (align_corners=True, zero
-     padding; the reference's own sampler, never called by the port)
+  3. kernel vs plain: one launch of the corr-window kernel over the four
+     pyramid-level shapes of the EVIMO2 batch-8 path and a level of width
+     10, against the plain per-level versions, f32 and bf16 volumes, with
+     coordinates outside the maps; the staging path of each level
+  4. timing (CUDA events, L2 flushed between launches) per refinement
+     iteration: the one launch over levels 1-4, its memory bound, the
+     plain version, and F.grid_sample per level (align_corners=True, zero
+     padding; the reference's own sampler, never called by the port); each
+     level alone beside it
   5. serving: raft_validation_step with seeded random weights on 1 warm-up
      + 3 synthetic B=8 384x512 requests: latency, samples/s, peak memory,
-     kernel launches per request (48), finite metrics, TF32 off inside
-     every forward
+     kernel launches per request (12: one per refinement iteration),
+     finite metrics, TF32 off inside every forward
   6. where the time goes: CUDA events around the model's parts over 3 more
      requests, then torch.profiler over one request (idle share)
   7. card vs CPU: the same weights and inputs through the port on the CPU
@@ -56,16 +59,19 @@ Phases, one or more lines each; any failure exits non-zero:
      forward and backward (G=210 groups, Q=N=19,200, per-bin band rows,
      trajectories moved up to 60 px, 1% far outside the image; the plain
      versions on 4 of the groups, kernel rows 7) and the voxel vote of the
-     14 x 2^20 cell-sorted events and of the same events unsorted (row 8)
+     14 x 2^20 cell-sorted events, of the same events unsorted and skewed
+     (half the live events of a sample in one 16 x 64 region, 1% on one
+     pixel), and of events on tile edges and corners and at the clamp
+     limits (row 8)
  15. timing (CUDA events, L2 flushed): kernel, bound (operations for row 7:
      exp2 at the SFU rate and f32 instructions, from nvidia-smi's maximum
      SM clock; bytes for row 8), plain version, and one PyTorch call
      (scaled_dot_product_attention, dense and without band, for the
      forward, with its difference to the kernel; none for the backward;
-     index_add_ of the eight taps for the vote)
+     index_add_ of the eight taps for the vote); the skewed vote's time
  16. training: train_flow as in phase 11: launches per step 1 + 1 softmax,
      1 voxel vote and the 6 of phase 11; in the val pass 1 softmax forward
-     and 1 voxel vote
+     and 1 voxel vote; the step losses against the recorded ones
  17. where the time goes, as phase 12, with "voxelize" and "softmax
      interpolation" spans
  18. card vs CPU: one f32 train_step of this configuration at the test
@@ -80,12 +86,13 @@ Phases, one or more lines each; any failure exits non-zero:
  20. timing (CUDA events, L2 flushed) per refinement iteration (4
      launches): the backward kernel, its bytes bound, the plain version,
      and F.grid_sample's backward (d input and d grid; the reference's
-     sampler, never called by the port); the forward kernel at B=6
+     sampler, never called by the port); the forward kernel's one launch
+     at B=6
  21. training: train_traj (the traj-train CLI's loop) at full width with
      seeded weights on synthetic batches of 2^19 events per sample: 1
      warm-up + 3 timed steps + 1 under torch.profiler (idle share), then a
      validation pass and a checkpoint: step ms, events/s, peak memory,
-     launches per step (48 + 48 corr-window, 2 + 2 vote, 1 + 1 gather), a
+     launches per step (12 + 48 corr-window, 2 + 2 vote, 1 + 1 gather), a
      finite loss that moves, context BatchNorm statistics that move, TF32
      off in the forward and the backward, finite validation metrics
  22. the same loop with loss.knn_method softmax (+ 1 + 1 softmax
@@ -110,8 +117,9 @@ Phases, one or more lines each; any failure exits non-zero:
      rows' cotangent nonzero, and with no padding
  27. training: train_flow on the unsorted batches: launches per step 1
      segment sum, 2 + 2 vote (row 4), 1 voxel vote, 1 + 1 softmax and no
-     LUT gather; TF32 off in the UNet's forward and backward; the
-     cell-sorted step of phase 16 beside it
+     LUT gather; TF32 off in the UNet's forward and backward; the step
+     losses against phase 16's recorded ones; the cell-sorted step of
+     phase 16 beside it
  28. where the time goes, as phase 17
  29. card vs CPU: one f32 unsorted train_step at the test geometry
  30. the JAX package's learning checks on the card, on unsorted events:
@@ -144,6 +152,8 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
+# ~1 ms of card cycles, longer than any timed call's host-side enqueue.
+HOST_COVER_CYCLES = 2_000_000
 RADIUS = 4
 K = (2 * RADIUS + 1) ** 2
 BATCH, H, W = 8, 384, 512
@@ -152,6 +162,9 @@ Q = (H // 8) * (W // 8)
 LEVELS = [(5, 48, 64), (1, 24, 32), (1, 12, 16), (1, 6, 8)]
 TOL_KERNEL = 1e-5
 TOL_CARD_VS_CPU = 1e-4
+# One fused lookup launch (all levels) per refinement iteration, 12 per
+# request.
+LOOKUPS_PER_REQUEST = 12
 
 
 def fail(msg: str):
@@ -242,12 +255,16 @@ def needed_bytes(torch, corr, cx, cy):
 
 
 def time_ms(torch, fn, flush, reps=20, warmup=3):
-    """Median ms of fn() over reps launches, L2 flushed before each."""
+    """Median ms of fn() over reps launches, L2 flushed before each.  A
+    spin of the card (torch.cuda._sleep) between the flush and the start
+    event keeps the card busy while the host enqueues fn, so the time is
+    the card's, not the host's launch overhead."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -258,39 +275,66 @@ def time_ms(torch, fn, flush, reps=20, warmup=3):
     return float(np.median(times))
 
 
+# A level of width 10 beside the path's four in phase 3's fused launch:
+# rows at any 4-byte offset, and bf16 rows at odd element offsets.
+UNALIGNED_LEVEL = (1, 12, 10)
+
+
+def level_set(torch, levels, seed, dtype, batch=BATCH):
+    """(corr, cx, cy, chan_off) per level from level_inputs, level-major
+    channel slabs, and the slab count."""
+    out, off = [], 0
+    for lvl, (t, h2, w2) in enumerate(levels):
+        corr, cx, cy = level_inputs(torch, t, h2, w2, min(lvl, 3), seed + lvl,
+                                    dtype, batch)
+        out.append((corr, cx, cy, off))
+        off += t * K
+    return out, off
+
+
 def phase_kernel(torch):
+    """Phases 3-4: the lookup of all levels in one launch against the plain
+    per-level versions, then timed per refinement iteration."""
     from torch.nn import functional as F
 
     from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
 
     max_err = 0.0
-    for lvl, (t, h2, w2) in enumerate(LEVELS):
-        for dtype in (torch.float32, torch.bfloat16):
-            corr, cx, cy = level_inputs(torch, t, h2, w2, lvl, 100 + lvl, dtype)
-            out_k = torch.full((BATCH, t * K, H // 8, W // 8), float("nan"),
-                               device="cuda")
-            out_p = torch.full_like(out_k, float("nan"))
-            cw.corr_window_lookup(corr, cx, cy, RADIUS, out_k, 0)
-            cw.corr_window_lookup_plain(corr, cx, cy, RADIUS, out_p, 0)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out_k).all():
-                fail(f"level {lvl + 1} {dtype}: kernel left non-finite outputs")
-            err = float((out_k - out_p).abs().max().item())
+    shapes = LEVELS + [UNALIGNED_LEVEL]
+    for dtype in (torch.float32, torch.bfloat16):
+        levels, c_total = level_set(torch, shapes, 100, dtype)
+        out_k = torch.full((BATCH, c_total, H // 8, W // 8), float("nan"),
+                           device="cuda")
+        out_p = torch.full_like(out_k, float("nan"))
+        before = cw.corr_window_lookup.launches
+        cw.corr_window_lookup_levels(levels, RADIUS, out_k)
+        cw.corr_window_lookup_levels_plain(levels, RADIUS, out_p)
+        torch.cuda.synchronize()
+        if cw.corr_window_lookup.launches != before + 1:
+            fail("the fused lookup did not make exactly one launch")
+        if not torch.isfinite(out_k).all():
+            fail(f"{dtype}: the fused lookup left non-finite outputs")
+        for (corr, _, _, off), (t, h2, w2) in zip(levels, shapes):
+            err = float((out_k[:, off:off + t * K]
+                         - out_p[:, off:off + t * K]).abs().max().item())
             max_err = max(max_err, err)
-            print(f"[kernel-vs-plain] level {lvl + 1} N={corr.shape[0] * BATCH * Q}"
-                  f" map {h2}x{w2} {str(dtype)[6:]}: max_abs_diff={err:.3e} "
-                  f"(bound {TOL_KERNEL:g})")
+            print(f"[kernel-vs-plain] fused launch of {len(shapes)} levels, "
+                  f"level map {h2}x{w2} N={corr.shape[0] * BATCH * Q} "
+                  f"{str(dtype)[6:]}: max_abs_diff={err:.3e} "
+                  f"(bound {TOL_KERNEL:g}); staging cp.async (4-byte LDGSTS,"
+                  f" zero-fill{', aligned pairs' if dtype == torch.bfloat16 else ''})")
             if err > TOL_KERNEL:
-                fail(f"kernel disagrees with plain at level {lvl + 1} {dtype}")
-            del corr, cx, cy, out_k, out_p
+                fail(f"the fused lookup disagrees with plain at map "
+                     f"{h2}x{w2} {dtype}")
+        del levels, out_k, out_p
     torch.cuda.empty_cache()
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for lvl, (t, h2, w2) in enumerate(LEVELS):
-        corr, cx, cy = level_inputs(torch, t, h2, w2, lvl, 200 + lvl,
-                                    torch.float32)
-        out = torch.empty(BATCH, t * K, H // 8, W // 8, device="cuda")
+    levels, c_total = level_set(torch, LEVELS, 200, torch.float32)
+    out = torch.empty(BATCH, c_total, H // 8, W // 8, device="cuda")
+    totals = dict(plain_ms=0.0, bound_ms=0.0, library_ms=0.0, level_ms=0.0)
+    for lvl, ((corr, cx, cy, off), (t, h2, w2)) in enumerate(
+            zip(levels, LEVELS)):
         n = corr.shape[0] * BATCH * Q
         # grid_sample's grid: the (2r+1)^2 sample points of each query in
         # [-1, 1] (align_corners=True), row-major over (dy, dx).
@@ -302,10 +346,11 @@ def phase_kernel(torch):
                             2 * gy.expand(n, 2 * RADIUS + 1, 2 * RADIUS + 1)
                             / (h2 - 1) - 1], dim=-1).contiguous()
         img = corr.reshape(n, 1, h2, w2)
-        k_ms = time_ms(torch, lambda: cw.corr_window_lookup(
-            corr, cx, cy, RADIUS, out, 0), flush)
-        p_ms = time_ms(torch, lambda: cw.corr_window_lookup_plain(
-            corr, cx, cy, RADIUS, out, 0), flush)
+        one = [(corr, cx, cy, off)]
+        k_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+            one, RADIUS, out), flush)
+        p_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels_plain(
+            one, RADIUS, out), flush)
         l_ms = time_ms(torch, lambda: F.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True), flush)
@@ -313,18 +358,25 @@ def phase_kernel(torch):
         flops = n * K * 7
         bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
         print(f"[timing] level {lvl + 1} N={n} map {h2}x{w2} f32: "
-              f"kernel={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
+              f"kernel alone={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
               f"({nbytes / 1e6:.1f} MB needed, bytes-bound) "
               f"plain={p_ms * 1e3:.1f} us grid_sample={l_ms * 1e3:.1f} us")
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                       ("library_ms", l_ms)):
+        for key, v in (("plain_ms", p_ms), ("bound_ms", bound),
+                       ("library_ms", l_ms), ("level_ms", k_ms)):
             totals[key] += v
-        del corr, cx, cy, out, grid, img, gx, gy
-    del flush
+        del grid, img, gx, gy
+    totals["ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        levels, RADIUS, out), flush)
+    rest_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        levels[1:], RADIUS, out), flush)
+    del flush, levels, out
     torch.cuda.empty_cache()
-    print(f"[timing] one refinement iteration (4 launches): "
-          f"kernel={totals['ms'] * 1e3:.1f} us bound={totals['bound_ms'] * 1e3:.1f}"
-          f" us plain={totals['plain_ms'] * 1e3:.1f} us "
+    print(f"[timing] one refinement iteration (1 launch, levels 1-4): "
+          f"kernel={totals['ms'] * 1e3:.1f} us (levels 2-4 alone in one "
+          f"launch {rest_ms * 1e3:.1f} us; the 4 levels launched one by one "
+          f"{totals['level_ms'] * 1e3:.1f} us) "
+          f"bound={totals['bound_ms'] * 1e3:.1f} us "
+          f"plain={totals['plain_ms'] * 1e3:.1f} us "
           f"grid_sample={totals['library_ms'] * 1e3:.1f} us")
     return max_err, totals
 
@@ -387,8 +439,9 @@ def phase_serving(torch, model, requests, ts):
     for h in hooks:
         h.remove()
     results = bank.compute()
-    if any(n != 48 for n in per_request):
-        fail(f"expected 48 corr_window launches per request, got {per_request}")
+    if any(n != LOOKUPS_PER_REQUEST for n in per_request):
+        fail(f"expected {LOOKUPS_PER_REQUEST} corr_window launches per "
+             f"request, got {per_request}")
     if not all(np.isfinite(v) for v in results.values()):
         fail("non-finite metrics in the bank")
     if seen != {(False, False)}:
@@ -565,10 +618,17 @@ TOL_VOTE_BWD = 1e-5                # relative to the largest cotangent
 TOL_SEGSUM = 1e-5                  # relative to the largest cell sum
 # Rows 7 and 8: the interpolation sums its weights in another order than
 # the plain version's matrix product, with fused multiply-adds; the voxel
-# vote adds a voxel's votes with atomics in run-dependent order.
+# vote adds a voxel's votes in a run-dependent order (its records reach
+# the voxel's owner thread in the order integer atomics gave them).
 TOL_SOFTMAX = 1e-5                 # relative to the largest plain value
 TOL_VOXEL = 1e-5                   # relative to the grid's largest value
 TOL_TRAIN_LOSS = 1e-4              # card vs CPU, relative
+# The softmax / device-voxel steps' losses on phase 8's batches, as the
+# port printed them before the voxel vote's tiles (cell-sorted; the
+# unsorted batch gave the same to 1e-6): a voxel grid summed in another
+# order moves them by far less than this bound.
+SOFTMAX_STEP_LOSSES = (0.502358, 0.494246, 0.476255, 0.495910)
+TOL_STEP_LOSS = 1e-4               # relative
 TOL_TRAIN_GRAD = 1e-4              # card vs CPU, of each tensor's largest
 TOL_TRAIN_BN = 1e-4                # card vs CPU, of each buffer's largest
 
@@ -956,19 +1016,32 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
     del queries, db, vals, slots, k_out, k_den, gout, gs, k_dv, lib
     torch.cuda.empty_cache()
 
-    # Row 8: the step's events (cell-sorted per polarity half), then the
-    # same events in random order.
+    # Row 8: the step's events (cell-sorted per polarity half), the same
+    # events in random order, and the same events skewed.
     events = torch.from_numpy(batch["events"]).cuda()
     m = events.shape[1]
     perm = torch.argsort(torch.rand(b, m, device="cuda"), dim=1)
     unsorted = torch.gather(events, 1, perm[..., None].expand(-1, -1, 6))
     del perm
+    skewed = torch.from_numpy(skewed_events(batch["events"], h, w, 14)).cuda()
+    ty, tx = vv.voxel_tile_shape(nb, h, w)
+    print(f"[softmax-kernels] voxel_vote tiles {nb} bins x {ty} x {tx} px; "
+          f"skewed batch: per sample half the live events in one 16x64 "
+          f"region, 1% on one pixel")
     nbytes = events.numel() * 4 + b * nb * h * w * 4
     img = torch.zeros(b * nb * h * w, device="cuda")
-    for label, ev in (("sorted", events), ("unsorted", unsorted)):
+    for label, ev in (("sorted", events), ("unsorted", unsorted),
+                      ("skewed", skewed)):
         err = check_close(f"voxel_vote {label} B={b} M={m} {nb}x{h}x{w}",
                           vv.voxel_vote(ev, nb, h, w),
                           vv.voxel_vote_plain(ev, nb, h, w), TOL_VOXEL)
+        if label == "skewed":
+            k_ms = time_ms(torch, lambda: vv.voxel_vote(ev, nb, h, w), flush)
+            print(f"[flow-timing] voxel_vote skewed: kernel={k_ms * 1e3:.1f} "
+                  f"us ({k_ms / out['voxel_vote']['unsorted_ms']:.2f}x the "
+                  f"unsorted batch)")
+            out["voxel_vote"].update(skewed_ms=k_ms, skewed_max_abs_err=err)
+            continue
         idx, val = vv.voxel_taps(ev, nb, h, w)
         idx, val = idx.reshape(-1), val.reshape(-1)
         nums = time_kernel(
@@ -983,9 +1056,59 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
                                      unsorted_library_ms=nums["library_ms"],
                                      unsorted_max_abs_err=err)
         del idx, val
-    del events, unsorted, img, flush
+    del events, unsorted, skewed, img, flush
+    # Events on tile edges and corners and at the clamp limits, B=3 with a
+    # ragged M: every output element written, within TOL_VOXEL.
+    edge = torch.from_numpy(edge_events(3, 40_001, h, w, ty, tx, 15)).cuda()
+    err = check_close(f"voxel_vote edges B=3 M=40001 {nb}x{h}x{w}",
+                      vv.voxel_vote(edge, nb, h, w),
+                      vv.voxel_vote_plain(edge, nb, h, w), TOL_VOXEL)
+    out["voxel_vote"]["edge_max_abs_err"] = err
+    del edge
     torch.cuda.empty_cache()
     return out
+
+
+def skewed_events(events, h, w, seed):
+    """The batch's events [B, M, 6] (numpy) with, per sample, half the live
+    events moved into one 16 x 64-pixel region and 1% onto one pixel."""
+    rng = np.random.default_rng(seed)
+    ev = events.copy()
+    for i in range(ev.shape[0]):
+        live = np.flatnonzero(ev[i, :, 5] > 0)
+        moved = rng.permutation(live)[:live.size // 2]
+        y0 = rng.integers(0, h - 16)
+        x0 = rng.integers(0, w - 64)
+        ev[i, moved, 0] = rng.uniform(y0, y0 + 16, moved.size)
+        ev[i, moved, 1] = rng.uniform(x0, x0 + 64, moved.size)
+        hot = moved[:live.size // 100]
+        ev[i, hot, 0] = y0 + 7.5
+        ev[i, hot, 1] = x0 + 31.25
+    return ev
+
+
+def edge_events(b, m, h, w, ty, tx, seed):
+    """Events on tile edges (y, x on and next to multiples of ty, tx),
+    on corners, at the clamp limits -3 and size + 2, at size - 1 and -1,
+    at bin edges, and padding rows."""
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(-3.5, h + 2.5, (b, m))
+    x = rng.uniform(-3.5, w + 2.5, (b, m))
+    t = rng.uniform(0, 1, (b, m))
+    k = m // 4
+    y[:, :k] = (rng.integers(0, h // ty + 1, (b, k)) * ty
+                + rng.choice([0.0, -1.0, -0.5, -1e-3], (b, k)))
+    x[:, k // 2:3 * k // 2] = (rng.integers(0, w // tx + 1, (b, k)) * tx
+                               + rng.choice([0.0, -1.0, -0.25], (b, k)))
+    lim = rng.choice([-3.0, -1.0, -0.5, 2.0], (b, k))
+    y[:, 2 * k:3 * k] = np.where(lim > 0, h + lim, lim)
+    x[:, 2 * k + k // 2:3 * k + k // 2] = np.where(
+        rng.random((b, k)) < 0.5, w + 2.0, -3.0)
+    t[:, 3 * k:3 * k + k // 4] = rng.choice([0.0, 1.0, 0.5], (b, k // 4))
+    p = rng.integers(0, 2, (b, m))
+    valid = (rng.random((b, m)) > 0.05).astype(np.float64)
+    return np.stack([y, x, t, p, np.zeros((b, m)), valid],
+                    -1).astype(np.float32)
 
 
 FLOW_KERNELS = ("iwe_vote_fwd", "iwe_vote_bwd", "lut_gather_fwd",
@@ -1027,7 +1150,8 @@ def kernel_wrappers():
 
 
 def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
-                     want, val_want, tag="flow-train", state=None):
+                     want, val_want, tag="flow-train", state=None,
+                     want_losses=None):
     """train_flow at full width: 1 warm-up + 3 timed steps, one val pass,
     a checkpoint; `state` is the train state to start from (else one made
     from seed 0).  Fails unless every step launches `want` and the val pass
@@ -1087,6 +1211,12 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
         fail(f"train losses {losses}")
     if len(set(losses)) < 2:
         fail(f"the loss did not change between steps: {losses}")
+    if want_losses is not None:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        print(f"[{tag}] losses against the recorded ones {list(want_losses)}: "
+              f"max rel diff {rel:.2e} (bound {TOL_STEP_LOSS:g})")
+        if not rel <= TOL_STEP_LOSS:
+            fail(f"the step losses {losses} moved from {want_losses}")
     if not epe or not np.isfinite(epe[0]):
         fail(f"val EPE {epe}")
     if not ckpts:
@@ -1215,7 +1345,7 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
               f"{e.count:5d}x  {e.key[:80]}")
     for e in kernels:
         if any(k in e.key for k in ("iwe_vote", "lut_gather", "lut_segsum",
-                                    "softmax_interp", "voxel_vote",
+                                    "softmax_interp", "voxel_",
                                     "segment_sum")):
             print(f"[{tag}]   port kernel {e.key[:60]}: "
                   f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
@@ -1337,10 +1467,11 @@ TOL_BWD = 1e-5                  # relative to max(1, max |plain|)
 TOL_BWD_BF16 = 2.0 ** -7        # bf16 d corr, relative likewise
 CORR_KERNELS = ("corr_window_lookup", "corr_window_lookup_bwd")
 # Launches per train step and in the val pass (one batch of 4) of the
-# traj-train paths: 12 iterations x 4 pyramid levels each way.
-TRAJ_STEP = {"corr_window_lookup": 48, "corr_window_lookup_bwd": 48,
+# traj-train paths: 12 iterations, one forward launch for all 4 pyramid
+# levels and one backward launch per level.
+TRAJ_STEP = {"corr_window_lookup": 12, "corr_window_lookup_bwd": 48,
              **EXACT_STEP}
-TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 48}
+TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 12}
 TRAJ_SOFTMAX_STEP = {**TRAJ_STEP, "softmax_interp_fwd": 1,
                      "softmax_interp_bwd": 1}
 TRAJ_SUPERVISED_STEP = {**TRAJ_VAL, "corr_window_lookup_bwd": 48}
@@ -1465,16 +1596,15 @@ def phase_bwd_timing(torch):
     c_total = sum(t for t, _, _ in LEVELS) * K
     g = torch.randn(b, c_total, H // 8, W // 8, device="cuda", generator=gen)
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                  fwd_ms=0.0, fwd_bound_ms=0.0)
-    chan_off = 0
+                  fwd_bound_ms=0.0)
+    levels, _ = level_set(torch, LEVELS, 400, torch.float32, b)
+    slab = torch.empty(b, c_total, H // 8, W // 8, device="cuda")
+    totals["fwd_ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        levels, RADIUS, slab), flush)
+    del slab
     for lvl, (t, h2, w2) in enumerate(LEVELS):
-        corr, cx, cy = level_inputs(torch, t, h2, w2, lvl, 400 + lvl,
-                                    torch.float32, b)
+        corr, cx, cy, off = levels[lvl]
         n = corr.shape[0] * b * Q
-        off = chan_off
-        slab = torch.empty(b, t * K, H // 8, W // 8, device="cuda")
-        f_ms = time_ms(torch, lambda: cw.corr_window_lookup(
-            corr, cx, cy, RADIUS, slab, 0), flush)
         f_bound = needed_bytes(torch, corr, cx, cy) / H100_BYTES_PER_S * 1e3
         k_ms = time_ms(torch, lambda: cw.corr_window_lookup_bwd(
             corr, cx, cy, RADIUS, g, off), flush)
@@ -1502,23 +1632,21 @@ def phase_bwd_timing(torch):
         print(f"[bwd-timing] level {lvl + 1} N={n} map {h2}x{w2} f32: "
               f"kernel={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
               f"({nbytes / 1e6:.1f} MB, bytes-bound) plain={p_ms * 1e3:.1f} us"
-              f" grid_sample backward={l_ms * 1e3:.1f} us; forward kernel="
-              f"{f_ms * 1e3:.1f} us (bound {f_bound * 1e3:.1f} us)")
+              f" grid_sample backward={l_ms * 1e3:.1f} us; forward bound "
+              f"{f_bound * 1e3:.1f} us")
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                       ("library_ms", l_ms), ("fwd_ms", f_ms),
-                       ("fwd_bound_ms", f_bound)):
+                       ("library_ms", l_ms), ("fwd_bound_ms", f_bound)):
             totals[key] += v
-        chan_off += t * K
-        del corr, cx, cy, grid, img, out, gout, gx, gy, slab
+        del corr, cx, cy, grid, img, out, gout, gx, gy
         torch.cuda.empty_cache()
-    del flush, g
+    del flush, g, levels
     torch.cuda.empty_cache()
     print(f"[bwd-timing] one refinement iteration's backward (4 launches), "
           f"B={b}: kernel={totals['ms'] * 1e3:.1f} us "
           f"bound={totals['bound_ms'] * 1e3:.1f} us "
           f"plain={totals['plain_ms'] * 1e3:.1f} us grid_sample backward="
           f"{totals['library_ms'] * 1e3:.1f} us; the forward kernel at these "
-          f"shapes {totals['fwd_ms'] * 1e3:.1f} us (bound "
+          f"shapes (1 launch) {totals['fwd_ms'] * 1e3:.1f} us (bound "
           f"{totals['fwd_bound_ms'] * 1e3:.1f} us)")
     return totals
 
@@ -1932,11 +2060,11 @@ def phase_traj_card_vs_cpu(torch):
     fns = traj_wrappers()
     for kind, host, want in (
             ("raft_train_step", selfsup,
-             {**{k: 0 for k in fns}, "corr_window_lookup": levels,
+             {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels, "iwe_vote_fwd": 2,
               "iwe_vote_bwd": 2, "lut_gather_fwd": 1, "lut_segsum_bwd": 1}),
             ("raft_supervised_train_step", supervised,
-             {**{k: 0 for k in fns}, "corr_window_lookup": levels,
+             {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels})):
         results = {}
         before = {k: f.launches for k, f in fns.items()}
@@ -2154,7 +2282,8 @@ def phase_unsorted_train(torch, cfg, loss_cfg, train_batch, val_batch,
     try:
         launches, mean_ms = phase_flow_train(
             torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
-            UNSORTED_STEP, UNSORTED_VAL, tag="unsorted-train", state=state)
+            UNSORTED_STEP, UNSORTED_VAL, tag="unsorted-train", state=state,
+            want_losses=SOFTMAX_STEP_LOSSES)
     finally:
         for hk in hooks:
             hk.remove()
@@ -2459,7 +2588,9 @@ FLOW_WORK = {
     "softmax_interp_bwd": "G=210, Q=N=19,200, C=2, per-bin band, f32 "
                           "d vals",
     "voxel_vote": "B=14, M=2^20 cell-sorted events -> 14 x 15 x 480 x 640 "
-                  "(unsorted_*: the same events in random order)",
+                  "(unsorted_*: the same events in random order; skewed_*: "
+                  "half the live events of each sample in one 16 x 64 "
+                  "region, 1% on one pixel)",
     "grid_segment_sum": "B=14, M=2^20 unsorted events (padding skipped), "
                         "LUT [1800, 160, 2] f32 (library: torch.gather's "
                         "backward, scatter_add_; traj_*: [6, 3936, 128, 2], "
@@ -2499,7 +2630,9 @@ def main() -> int:
         "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"], "bound_by": "bytes",
         "library_ms": totals["library_ms"],
-        "work": "one refinement iteration: levels 1-4, B=8, 384x512, f32",
+        "levels_one_by_one_ms": totals["level_ms"], "staging": "cp.async",
+        "work": "one refinement iteration: levels 1-4 in one launch, B=8, "
+                "384x512, f32 (library: F.grid_sample per level, summed)",
     }]
 
     # flow-train, exact KNN and host voxel grids
@@ -2526,7 +2659,7 @@ def main() -> int:
     numbers.update(phase_softmax_kernels(torch, sloss, train_batch))
     soft_launches, soft_ms = phase_flow_train(
         torch, scfg, sloss, train_batch, val_batch, smi_line, SOFTMAX_STEP,
-        SOFTMAX_VAL, tag="softmax-train")
+        SOFTMAX_VAL, tag="softmax-train", want_losses=SOFTMAX_STEP_LOSSES)
     del val_batch
     phase_flow_breakdown(torch, scfg, sloss, train_batch,
                          tag="softmax-breakdown")

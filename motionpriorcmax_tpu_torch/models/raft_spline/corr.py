@@ -96,8 +96,8 @@ def lookup_corr_pyramid(pyramid: Pyramid, coords: torch.Tensor,
 
     Returns:
       [B, sum_l T_l * (2r+1)^2, h1, w1] float32: level-major, then target,
-      then (2r+1)^2 row-major over (dy, dx).  One forward kernel launch per
-      level and, under autograd, one backward launch per level; the
+      then (2r+1)^2 row-major over (dy, dx).  One forward kernel launch for
+      all levels and, under autograd, one backward launch per level; the
       gradient reaches the volumes and `coords` (through the bilinear
       fractions; the per-level 1/2^l scale is torch's, outside the kernel).
     """

@@ -10,27 +10,32 @@ Entry points, each with a plain PyTorch version of the same signature that
 runs on CPU tensors; on a CUDA tensor each launches its kernel or raises,
 and counts the launch on its `.launches`:
 
-  corr_window_lookup      one level's features into their channel slab
+  corr_window_lookup_levels  every level's features into their channel
+                          slabs, one launch (`corr_window_lookup_levels_plain`)
+  corr_window_lookup      the same call for one level
                           (`corr_window_lookup_plain`)
   corr_window_lookup_bwd  the transpose: d corr (the TPU kernel `_vjp_bwd`,
                           fused with the combine's transpose), d cx, d cy
                           (`corr_window_lookup_bwd_plain`)
   CorrPyramidLookup       the autograd Function over all pyramid levels: the
-                          forward per level into one slab, the backward per
-                          level from the slab's cotangent
+                          forward in one launch into one slab, the backward
+                          per level from the slab's cotangent
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 # The lookup radius of every RAFT-Spline config, and the only one the
 # kernel is built for (kRadius in csrc/corr_window.cu).
 RADIUS = 4
+
+# One level of a lookup: (corr, cx, cy, chan_off).
+Level = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]
 
 
 def extract_windows(corr_flat: torch.Tensor, rows0: torch.Tensor,
@@ -127,22 +132,89 @@ def corr_window_lookup_plain(corr: torch.Tensor, cx: torch.Tensor,
     return out
 
 
+def corr_window_lookup_levels_plain(levels: Sequence[Level], radius: int,
+                                    out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `corr_window_lookup_levels`: the levels one
+    after another, same result."""
+    for corr, cx, cy, chan_off in levels:
+        corr_window_lookup_plain(corr, cx, cy, radius, out, chan_off)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The built kernel's C entry point, with its argument types declared."""
     from .build import load_library
 
-    fn = load_library("corr_window").corr_window_lookup
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = load_library("corr_window").corr_window_lookup_levels
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.restype = i
+    fn.argtypes = [i, p, p, p, p, p, p, p, i, p, i, i, i, i, p]
     return fn
 
 
 def _is_cuda(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
+
+
+def _launch_levels(levels: Sequence[Level], radius: int,
+                   out: torch.Tensor) -> None:
+    """One launch of the kernel over every level (checked by the caller)."""
+    fn = _kernel()
+    n = len(levels)
+
+    def arr(ctype, values):
+        return (ctype * n)(*values)
+
+    corr0 = levels[0][0]
+    b, q = corr0.shape[1:3]
+    with torch.cuda.device(corr0.device):
+        stream = torch.cuda.current_stream(corr0.device).cuda_stream
+        err = fn(n, arr(ctypes.c_void_p, [c.data_ptr() for c, *_ in levels]),
+                 arr(ctypes.c_void_p, [x.data_ptr() for _, x, _, _ in levels]),
+                 arr(ctypes.c_void_p, [y.data_ptr() for _, _, y, _ in levels]),
+                 arr(ctypes.c_longlong, [c.shape[0] * b * q
+                                         for c, *_ in levels]),
+                 arr(ctypes.c_int, [c.shape[3] for c, *_ in levels]),
+                 arr(ctypes.c_int, [c.shape[4] for c, *_ in levels]),
+                 arr(ctypes.c_int, [off for *_, off in levels]),
+                 int(corr0.dtype == torch.bfloat16), out.data_ptr(), radius,
+                 b, q, out.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"corr_window_lookup kernel failed: cudaError_t {err}")
+
+
+def corr_window_lookup_levels(levels: Sequence[Level], radius: int,
+                              out: torch.Tensor) -> torch.Tensor:
+    """Look up every pyramid level in one launch, each into its channel slab.
+
+    Args:
+      levels: (corr, cx, cy, chan_off) per level, as `corr_window_lookup`
+        takes them; all volumes of one dtype, batch and query count.
+      radius, out: as `corr_window_lookup`.
+
+    Returns `out`.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel once on the current stream, counted on
+    `corr_window_lookup.launches`, or raise.
+    """
+    if not levels:
+        raise ValueError("no levels to look up")
+    for corr, cx, cy, chan_off in levels:
+        _check(corr, cx, cy, radius, out, chan_off)
+    corr0 = levels[0][0]
+    for corr, *_ in levels[1:]:
+        if corr.dtype != corr0.dtype or corr.device != corr0.device:
+            raise ValueError("every level must share one dtype and device")
+    if not _is_cuda(corr0):
+        return corr_window_lookup_levels_plain(levels, radius, out)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for lvl in levels for x in lvl[:3]):
+        raise ValueError(
+            "corr_window_lookup writes its slab in place and carries no "
+            "gradient; differentiate through CorrPyramidLookup")
+    _launch_levels(levels, radius, out)
+    corr_window_lookup.launches += 1
+    return out
 
 
 def corr_window_lookup(corr: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
@@ -162,27 +234,10 @@ def corr_window_lookup(corr: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
       chan_off: first channel of this level's slab.
 
     Returns `out`.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel on the current stream or raises.
+    launches the kernel (the one-level call of `corr_window_lookup_levels`)
+    on the current stream or raises.
     """
-    _check(corr, cx, cy, radius, out, chan_off)
-    if not _is_cuda(corr):
-        return corr_window_lookup_plain(corr, cx, cy, radius, out, chan_off)
-    if torch.is_grad_enabled() and (corr.requires_grad or cx.requires_grad
-                                    or cy.requires_grad):
-        raise ValueError(
-            "corr_window_lookup writes its slab in place and carries no "
-            "gradient; differentiate through CorrPyramidLookup")
-    fn = _kernel()
-    t, b, q, h2, w2 = corr.shape
-    with torch.cuda.device(corr.device):
-        stream = torch.cuda.current_stream(corr.device).cuda_stream
-        err = fn(corr.data_ptr(), int(corr.dtype == torch.bfloat16),
-                 cx.data_ptr(), cy.data_ptr(), out.data_ptr(), t * b * q,
-                 h2, w2, radius, b, q, out.shape[1], chan_off, stream)
-    if err != 0:
-        raise RuntimeError(f"corr_window_lookup kernel failed: cudaError_t {err}")
-    corr_window_lookup.launches += 1
-    return out
+    return corr_window_lookup_levels([(corr, cx, cy, chan_off)], radius, out)
 
 
 corr_window_lookup.launches = 0
@@ -252,6 +307,25 @@ def _kernel_bwd():
     return fn
 
 
+def _launch_bwd(corr, cx, cy, radius, g, chan_off):
+    """One launch of the backward kernel (checked by the caller)."""
+    fn = _kernel_bwd()
+    t, b, q, h2, w2 = corr.shape
+    d_corr = torch.empty_like(corr)
+    d_cx = torch.empty_like(cx)
+    d_cy = torch.empty_like(cy)
+    with torch.cuda.device(corr.device):
+        stream = torch.cuda.current_stream(corr.device).cuda_stream
+        err = fn(corr.data_ptr(), int(corr.dtype == torch.bfloat16),
+                 cx.data_ptr(), cy.data_ptr(), g.data_ptr(), d_corr.data_ptr(),
+                 d_cx.data_ptr(), d_cy.data_ptr(), t * b * q, h2, w2, radius,
+                 b, q, g.shape[1], chan_off, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"corr_window_lookup_bwd kernel failed: cudaError_t {err}")
+    return d_corr, d_cx, d_cy
+
+
 def corr_window_lookup_bwd(corr: torch.Tensor, cx: torch.Tensor,
                            cy: torch.Tensor, radius: int, g: torch.Tensor,
                            chan_off: int
@@ -270,20 +344,7 @@ def corr_window_lookup_bwd(corr: torch.Tensor, cx: torch.Tensor,
     _check(corr, cx, cy, radius, g, chan_off)
     if not _is_cuda(corr):
         return corr_window_lookup_bwd_plain(corr, cx, cy, radius, g, chan_off)
-    fn = _kernel_bwd()
-    t, b, q, h2, w2 = corr.shape
-    d_corr = torch.empty_like(corr)
-    d_cx = torch.empty_like(cx)
-    d_cy = torch.empty_like(cy)
-    with torch.cuda.device(corr.device):
-        stream = torch.cuda.current_stream(corr.device).cuda_stream
-        err = fn(corr.data_ptr(), int(corr.dtype == torch.bfloat16),
-                 cx.data_ptr(), cy.data_ptr(), g.data_ptr(), d_corr.data_ptr(),
-                 d_cx.data_ptr(), d_cy.data_ptr(), t * b * q, h2, w2, radius,
-                 b, q, g.shape[1], chan_off, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"corr_window_lookup_bwd kernel failed: cudaError_t {err}")
+    d_corr, d_cx, d_cy = _launch_bwd(corr, cx, cy, radius, g, chan_off)
     corr_window_lookup_bwd.launches += 1
     return d_corr, d_cx, d_cy
 
@@ -295,8 +356,9 @@ class CorrPyramidLookup(torch.autograd.Function):
     """The lookup over every pyramid level, differentiable.
 
     apply(radius, h1, w1, corr_0, cx_0, cy_0, corr_1, cx_1, cy_1, ...) ->
-    [B, sum_l T_l * K, h1, w1] float32, level-major.  The forward runs
-    `corr_window_lookup` per level into one slab; the backward runs
+    [B, sum_l T_l * K, h1, w1] float32, level-major.  The forward is one
+    `corr_window_lookup_levels` launch over all levels into one slab; the
+    backward runs
     `corr_window_lookup_bwd` per level on the slab's cotangent and returns
     d corr, d cx, d cy of every level.  The volumes are saved as they are
     (they are the pyramid the caller keeps), nothing else of size.
@@ -312,10 +374,11 @@ class CorrPyramidLookup(torch.autograd.Function):
         total = sum(corr.shape[0] for corr, _, _ in levels) * k
         out = torch.empty(b, total, h1, w1, dtype=torch.float32,
                           device=levels[0][0].device)
-        chan_off = 0
-        for corr, cx, cy in levels:
-            corr_window_lookup(corr, cx, cy, radius, out, chan_off)
-            chan_off += corr.shape[0] * k
+        offs = [0]
+        for corr, _, _ in levels[:-1]:
+            offs.append(offs[-1] + corr.shape[0] * k)
+        corr_window_lookup_levels(
+            [(*lvl, off) for lvl, off in zip(levels, offs)], radius, out)
         ctx.radius = radius
         ctx.save_for_backward(*tensors)
         return out

@@ -34,7 +34,7 @@ def voxel_grid_from_events(events: torch.Tensor, *, num_bins: int,
     """[B, M, 6] rows with t in [0, 1] -> [B, num_bins, H, W] f32 trilinear
     voxel grids (JAX: voxel_grid_from_events on t_norm = t * (num_bins - 1),
     per sample): value (2p - 1) * valid, floor / floor + 1 taps, each axis
-    masked to its range.  One launch of the voxel-vote kernel on the card.
+    masked to its range.  One call of the voxel-vote kernel on the card.
     """
     return voxel_vote(events, num_bins, height, width)
 

@@ -15,15 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+from motionpriorcmax_tpu_torch.models.raft_spline import corr as tcorr
 from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
 
 try:
+    import jax
     import jax.numpy as jnp
 
+    from motionpriorcmax_tpu.models.raft_spline import corr as jcorr
     from motionpriorcmax_tpu.models.raft_spline.corr import _window_lookup
     from motionpriorcmax_tpu.ops.pallas.corr_window import corr_window_pallas
-except ImportError:         # the GPU machine: only the cuda test runs there
-    jnp = _window_lookup = corr_window_pallas = None
+except ImportError:         # the GPU machine: only the cuda tests run there
+    jax = jnp = jcorr = _window_lookup = corr_window_pallas = None
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -155,3 +158,134 @@ def test_kernel_matches_plain_on_card(dtype):
     torch.cuda.synchronize()
     assert cw.corr_window_lookup.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+# A small pyramid whose level 2 is 10 wide and level 3 5 wide: rows of 40
+# and 20 bytes in f32, 20 and 10 in bf16 (odd widths put bf16 pairs across
+# rows on the card).
+PYR_LEVELS = [(0, 1, 2), (1, 2), (2,)]
+PYR_SHAPES = [(12, 20), (6, 10), (3, 5)]
+
+
+def _pyramid(rng, b=2, h1=3, w1=4):
+    vols = [rng.normal(size=(len(idx), b, h1 * w1) + hw).astype(np.float32)
+            for idx, hw in zip(PYR_LEVELS, PYR_SHAPES)]
+    base = np.stack(np.meshgrid(np.arange(w1), np.arange(h1), indexing="xy"))
+    coords = (base[None, None] * 3.0
+              + rng.normal(scale=4.0, size=(3, b, 2, h1, w1))).astype(np.float32)
+    coords[0, 0, 0, 0, :2] = [-900.5, 700.25]      # origin clamp at every level
+    return vols, coords
+
+
+def test_levels_plain_equals_per_level_and_jax_pyramid():
+    # The fused entry's plain version is the per-level plain calls, slab by
+    # slab (bitwise), and the port's pyramid lookup through it matches the
+    # JAX lookup_corr_pyramid (einsum impl) to 1e-6: the same f32
+    # arithmetic on a selection.
+    rng = np.random.default_rng(4)
+    vols, coords = _pyramid(rng)
+    b, h1, w1 = 2, 3, 4
+    levels, off = [], 0
+    for lvl, (idx, v) in enumerate(zip(PYR_LEVELS, vols)):
+        sel = coords[list(idx)] / 2.0 ** lvl
+        cx = torch.from_numpy(np.ascontiguousarray(
+            sel[:, :, 0].reshape(len(idx), b, h1 * w1)))
+        cy = torch.from_numpy(np.ascontiguousarray(
+            sel[:, :, 1].reshape(len(idx), b, h1 * w1)))
+        levels.append((torch.from_numpy(v), cx, cy, off))
+        off += len(idx) * 81
+    fused = torch.full((b, off, h1, w1), float("nan"))
+    per_level = torch.full_like(fused, float("nan"))
+    before = cw.corr_window_lookup.launches
+    cw.corr_window_lookup_levels(levels, 4, fused)
+    for corr, cx, cy, chan_off in levels:
+        cw.corr_window_lookup_plain(corr, cx, cy, 4, per_level, chan_off)
+    assert cw.corr_window_lookup.launches == before  # no kernel on the CPU
+    assert torch.equal(fused, per_level)
+
+    got = tcorr.lookup_corr_pyramid(
+        [(idx, torch.from_numpy(v)) for idx, v in zip(PYR_LEVELS, vols)],
+        torch.from_numpy(coords), 4)
+    want = np.asarray(jax.jit(lambda vs, c: jcorr.lookup_corr_pyramid(
+        list(zip(PYR_LEVELS, vs)), c, 4, "einsum"))(
+            [jnp.asarray(v) for v in vols], jnp.asarray(coords)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got, fused, rtol=0, atol=1e-6)
+
+
+def test_pyramid_lookup_launches_once_forward_once_per_level_backward(
+        monkeypatch):
+    # On CUDA tensors CorrPyramidLookup makes one forward launch for all
+    # levels and one backward launch per level.  Mock the dispatch so that
+    # CPU tensors take the CUDA branch, with the launches replaced by the
+    # plain versions: the counters and the calls show the launch pattern,
+    # and the result is the plain path's.
+    rng = np.random.default_rng(5)
+    vols, coords = _pyramid(rng)
+    g = torch.from_numpy(rng.normal(size=(2, 6 * 81, 3, 4)).astype(np.float32))
+
+    def run():
+        vs = [torch.from_numpy(v).requires_grad_() for v in vols]
+        c = torch.from_numpy(coords).requires_grad_()
+        out = tcorr.lookup_corr_pyramid(list(zip(PYR_LEVELS, vs)), c, 4)
+        out.backward(g)
+        return [out.detach()] + [x.grad for x in vs + [c]]
+
+    want = run()
+    calls = {"fwd": [], "bwd": 0}
+
+    def fake_fwd(levels, radius, out):
+        calls["fwd"].append(len(levels))
+        cw.corr_window_lookup_levels_plain(levels, radius, out)
+
+    def fake_bwd(corr, cx, cy, radius, g, chan_off):
+        calls["bwd"] += 1
+        return cw.corr_window_lookup_bwd_plain(corr, cx, cy, radius, g,
+                                               chan_off)
+
+    monkeypatch.setattr(cw, "_is_cuda", lambda x: True)
+    monkeypatch.setattr(cw, "_launch_levels", fake_fwd)
+    monkeypatch.setattr(cw, "_launch_bwd", fake_bwd)
+    fwd0 = cw.corr_window_lookup.launches
+    bwd0 = cw.corr_window_lookup_bwd.launches
+    got = run()
+    assert calls == {"fwd": [3], "bwd": 3}
+    assert cw.corr_window_lookup.launches == fwd0 + 1
+    assert cw.corr_window_lookup_bwd.launches == bwd0 + 3
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_levels_match_plain_on_card(dtype):
+    # All levels in one launch, against the plain per-level lookup: level
+    # widths 64, 32, 10, 8 and 13 (rows at any 4-byte offset in f32, at odd
+    # element offsets in bf16, whose aligned pairs then straddle rows),
+    # with centres far outside and just outside the maps; f32 accumulation,
+    # fused multiply-adds: atol 1e-5 at unit-scale values.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    tdt = getattr(torch, dtype)
+    b, h1, w1 = 2, 6, 8
+    q = h1 * w1
+    shapes = [(3, 24, 64), (1, 12, 32), (1, 12, 10), (1, 6, 8), (1, 7, 13)]
+    levels, off = [], 0
+    for t, h2, w2 in shapes:
+        corr = torch.randn(t, b, q, h2, w2, generator=gen).to(tdt)
+        cx = torch.rand(t, b, q, generator=gen) * (w2 + 16) - 8
+        cy = torch.rand(t, b, q, generator=gen) * (h2 + 16) - 8
+        cx[0, 0, :3] = torch.tensor([1e12, -1e12, float(w2) - 0.5])
+        cy[0, 1, :2] = torch.tensor([-1e9, h2 + 0.25])
+        levels.append((corr.to(dev), cx.to(dev), cy.to(dev), off))
+        off += t * 81
+    out = torch.full((b, off, h1, w1), float("nan"), device=dev)
+    before = cw.corr_window_lookup.launches
+    cw.corr_window_lookup_levels(levels, 4, out)
+    torch.cuda.synchronize()
+    assert cw.corr_window_lookup.launches == before + 1
+    want = cw.corr_window_lookup_levels_plain(
+        levels, 4, torch.full_like(out, float("nan")))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)

@@ -128,7 +128,7 @@ def test_quantile_clamp_refuses_oversized_grids():
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the card, cell-sorted
     and unsorted events: within 1e-5 of the largest voxel, since the
-    atomics add a voxel's votes in another order on every run."""
+    kernel adds a voxel's votes in another, run-dependent order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(3)
@@ -148,5 +148,129 @@ def test_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert vv.voxel_vote.launches == before + 1
         want = vv.voxel_vote_plain(e, NB, H, W)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+# -- the kernel's tiling (csrc/voxel_vote.cu), through its plain twin ---------
+
+def make_tile_events(seed, b=2, m=6000, ty=4, tx=8):
+    """Events that probe the tiling at (ty, tx): on tile edges and corners
+    (taps crossing into the next tile right, below or both), at -3, -1,
+    size - 1 and size + 2, far out, padding (valid 0), a hot tile holding a
+    third of the events and a hot pixel holding 5%."""
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(-1.5, H + 0.5, (b, m))
+    x = rng.uniform(-1.5, W + 0.5, (b, m))
+    t = rng.uniform(0, 1, (b, m))
+    fy, fx = rng.uniform(0, 1, (2, b, 400))
+    y[:, :400] = rng.integers(1, H // ty, (b, 400)) * ty - fy * 0.5  # crossing
+    x[:, 200:600] = rng.integers(1, W // tx, (b, 400)) * tx - fx * 0.5
+    x[:, 600:640] = rng.choice([-3.0, -1.0, -0.5, W - 1.0, W - 0.5, W + 2.0],
+                               (b, 40))
+    y[:, 640:680] = rng.choice([-3.0, -1.0, -0.5, H - 1.0, H - 0.5, H + 2.0],
+                               (b, 40))
+    t[:, 680:720] = rng.choice([0.0, 1.0, 1.0 + 1e-6, -1e-3], (b, 40))
+    x[:, 720:730] = 1e9
+    y[:, 730:740] = -1e9
+    y[:, 1000:3000] = rng.uniform(ty, 2 * ty, (b, 2000))           # hot tile
+    x[:, 1000:3000] = rng.uniform(tx, 2 * tx, (b, 2000))
+    y[:, 3000:3300] = ty + 1.25                                     # hot pixel
+    x[:, 3000:3300] = 2 * tx - 0.75
+    p = rng.integers(0, 2, (b, m))
+    valid = (rng.uniform(size=(b, m)) > 0.1).astype(np.float32)
+    ev = np.stack([y, x, t, p, np.zeros((b, m)), valid], -1).astype(np.float32)
+    return ev
+
+
+@pytest.mark.parametrize("ty,tx", [(4, 8), (3, 12), (16, 64)])
+def test_tiling_keeps_each_in_range_tap_once(ty, tx):
+    # Every tap of a voting event that lies inside the grid is kept by
+    # exactly one of the tiles that read the event's record; no other tap
+    # is kept by any tile.
+    ev = torch.from_numpy(make_tile_events(3))
+    keeps = vv.voxel_tile_keeps(ev, NB, H, W, ty, tx)          # [4, 8, B, M]
+    _, _, in_range = vv.voxel_tap_in_range(ev, NB, H, W)
+    assert torch.equal(keeps.sum(0), in_range.long())
+    # The edge events do cross tiles, so the neighbours' reads are exercised.
+    readers = vv.voxel_tile_readers(ev, NB, H, W, ty, tx)
+    if (ty, tx) != (16, 64):
+        assert all((readers[r] >= 0).any() for r in range(4))
+    live, _, _ = vv.voxel_event_tiles(ev, NB, H, W, ty, tx)
+    assert torch.equal(readers[0] >= 0, live)
+
+
+@pytest.mark.parametrize("ty,tx", [(4, 8), (16, 64)])
+def test_tiled_sum_matches_plain_and_jax(ty, tx):
+    # The tiles' sums, tile by tile, give the plain vote (up to the order of
+    # a voxel's f32 adds) and the JAX exact voxelizer: 1e-5 of the largest
+    # voxel.
+    ev = make_tile_events(4, ty=4, tx=8)
+    want = jax_exact(ev)
+    evt = torch.from_numpy(ev)
+    got = vv.voxel_vote_tiled_plain(evt, NB, H, W, ty, tx)
+    plain = vv.voxel_vote_plain(evt, NB, H, W)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+    pad = evt.clone()
+    pad[..., 5] = 0.0                        # all padding: an all-zero grid
+    assert not vv.voxel_vote_tiled_plain(pad, NB, H, W, ty, tx).any()
+
+
+def test_tile_shape_fits_shared_memory():
+    assert vv.voxel_tile_shape(15, 480, 640) == (16, 64)
+    for nbins in (1, 5, 15, 41, 65, 300, 3840):
+        ty, tx = vv.voxel_tile_shape(nbins, 480, 640)
+        assert tx % 4 == 0 and ty >= 1
+        assert nbins * ty * tx <= vv.MAX_TILE_FLOATS
+    with pytest.raises(ValueError, match="bins"):
+        vv.voxel_tile_shape(4000, 480, 640)
+
+
+def _card_events(rng, b, m, h, w, skew=False):
+    ev = np.stack([rng.uniform(-3.5, h + 2.5, (b, m)),
+                   rng.uniform(-3.5, w + 2.5, (b, m)),
+                   rng.uniform(0, 1, (b, m)), rng.integers(0, 2, (b, m)),
+                   np.zeros((b, m)), rng.uniform(size=(b, m)) > 0.1],
+                  -1).astype(np.float32)
+    ev[:, :64, 0] = rng.integers(0, h // 16 + 1, (b, 64)) * 16 - 0.5
+    ev[:, 32:96, 1] = rng.integers(0, w // 64 + 1, (b, 64)) * 64 - 0.25
+    if skew:                 # half in one 16 x 64 tile, 1% on one pixel
+        k = m // 2
+        ev[:, 100:100 + k, 0] = rng.uniform(16, 32, (b, k))
+        ev[:, 100:100 + k, 1] = rng.uniform(64, 128, (b, k))
+        ev[:, 100:100 + m // 100, 0] = 20.5
+        ev[:, 100:100 + m // 100, 1] = 70.25
+    return ev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "skewed", "padding", "ragged"])
+def test_tiled_kernel_matches_plain_on_card(case):
+    """The tiled kernel against its plain version: uniform events, a
+    skewed batch whose hot tile holds more than the cluster-split
+    threshold (16384 records), all padding (the grid is written whole:
+    zeros), and B = 1 with a ragged M; within 1e-5 of the largest voxel
+    (shared atomics add a voxel's votes in a run-dependent order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    h, w, nb = 40, 200, 5
+    b, m = {"uniform": (3, 30011), "skewed": (2, 70000),
+            "padding": (2, 9000), "ragged": (1, 12345)}[case]
+    ev = _card_events(rng, b, m, h, w, skew=case == "skewed")
+    if case == "padding":
+        ev[..., 5] = 0.0
+    e = torch.from_numpy(ev).cuda()
+    before = vv.voxel_vote.launches
+    got = vv.voxel_vote(e, nb, h, w)
+    torch.cuda.synchronize()
+    assert vv.voxel_vote.launches == before + 1
+    want = vv.voxel_vote_plain(e, nb, h, w)
+    if case == "padding":
+        assert not got.any()
+    else:
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
