@@ -152,7 +152,8 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
-# ~1 ms of card cycles, longer than any timed call's host-side enqueue.
+# ~1 ms of card cycles, longer than any timed call's host-side enqueue
+# (time_ms's card time).
 HOST_COVER_CYCLES = 2_000_000
 RADIUS = 4
 K = (2 * RADIUS + 1) ** 2
@@ -254,17 +255,21 @@ def needed_bytes(torch, corr, cx, cy):
     return window_elems * corr.element_size() + n * 8 + n * K * 4
 
 
-def time_ms(torch, fn, flush, reps=20, warmup=3):
-    """Median ms of fn() over reps launches, L2 flushed before each.  A
-    spin of the card (torch.cuda._sleep) between the flush and the start
-    event keeps the card busy while the host enqueues fn, so the time is
-    the card's, not the host's launch overhead."""
+def time_ms(torch, fn, flush, reps=20, warmup=3, card=False):
+    """Median ms of fn() over reps launches, L2 flushed before each,
+    between two events recorded around fn.  When the host takes longer to
+    enqueue fn than the card takes to flush, the time includes the host's
+    launch overhead: the yardstick of every `ms` in the kernels line.  With
+    card=True a spin of the card (torch.cuda._sleep) between the flush and
+    the start event keeps it busy while the host enqueues fn, and the time
+    is the card's alone (`card_ms`)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(HOST_COVER_CYCLES)
+        if card:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -332,7 +337,8 @@ def phase_kernel(torch):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     levels, c_total = level_set(torch, LEVELS, 200, torch.float32)
     out = torch.empty(BATCH, c_total, H // 8, W // 8, device="cuda")
-    totals = dict(plain_ms=0.0, bound_ms=0.0, library_ms=0.0, level_ms=0.0)
+    totals = dict(plain_ms=0.0, bound_ms=0.0, library_ms=0.0, level_ms=0.0,
+                  level_card_ms=0.0)
     for lvl, ((corr, cx, cy, off), (t, h2, w2)) in enumerate(
             zip(levels, LEVELS)):
         n = corr.shape[0] * BATCH * Q
@@ -349,6 +355,8 @@ def phase_kernel(torch):
         one = [(corr, cx, cy, off)]
         k_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
             one, RADIUS, out), flush)
+        kc_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+            one, RADIUS, out), flush, card=True)
         p_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels_plain(
             one, RADIUS, out), flush)
         l_ms = time_ms(torch, lambda: F.grid_sample(
@@ -358,23 +366,29 @@ def phase_kernel(torch):
         flops = n * K * 7
         bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
         print(f"[timing] level {lvl + 1} N={n} map {h2}x{w2} f32: "
-              f"kernel alone={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
+              f"kernel alone={k_ms * 1e3:.1f} us (card {kc_ms * 1e3:.1f} us) "
+              f"bound={bound * 1e3:.1f} us "
               f"({nbytes / 1e6:.1f} MB needed, bytes-bound) "
               f"plain={p_ms * 1e3:.1f} us grid_sample={l_ms * 1e3:.1f} us")
         for key, v in (("plain_ms", p_ms), ("bound_ms", bound),
-                       ("library_ms", l_ms), ("level_ms", k_ms)):
+                       ("library_ms", l_ms), ("level_ms", k_ms),
+                       ("level_card_ms", kc_ms)):
             totals[key] += v
         del grid, img, gx, gy
     totals["ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
         levels, RADIUS, out), flush)
+    totals["card_ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        levels, RADIUS, out), flush, card=True)
     rest_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
         levels[1:], RADIUS, out), flush)
     del flush, levels, out
     torch.cuda.empty_cache()
     print(f"[timing] one refinement iteration (1 launch, levels 1-4): "
-          f"kernel={totals['ms'] * 1e3:.1f} us (levels 2-4 alone in one "
+          f"kernel={totals['ms'] * 1e3:.1f} us (card "
+          f"{totals['card_ms'] * 1e3:.1f} us; levels 2-4 alone in one "
           f"launch {rest_ms * 1e3:.1f} us; the 4 levels launched one by one "
-          f"{totals['level_ms'] * 1e3:.1f} us) "
+          f"{totals['level_ms'] * 1e3:.1f} us, card "
+          f"{totals['level_card_ms'] * 1e3:.1f} us) "
           f"bound={totals['bound_ms'] * 1e3:.1f} us "
           f"plain={totals['plain_ms'] * 1e3:.1f} us "
           f"grid_sample={totals['library_ms'] * 1e3:.1f} us")
@@ -1035,12 +1049,17 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
         err = check_close(f"voxel_vote {label} B={b} M={m} {nb}x{h}x{w}",
                           vv.voxel_vote(ev, nb, h, w),
                           vv.voxel_vote_plain(ev, nb, h, w), TOL_VOXEL)
+        kc_ms = time_ms(torch, lambda: vv.voxel_vote(ev, nb, h, w), flush,
+                        card=True)
+        print(f"[flow-timing] voxel_vote {label}: card time {kc_ms * 1e3:.1f}"
+              f" us (the card spun while the host enqueued the call)")
         if label == "skewed":
             k_ms = time_ms(torch, lambda: vv.voxel_vote(ev, nb, h, w), flush)
             print(f"[flow-timing] voxel_vote skewed: kernel={k_ms * 1e3:.1f} "
                   f"us ({k_ms / out['voxel_vote']['unsorted_ms']:.2f}x the "
                   f"unsorted batch)")
-            out["voxel_vote"].update(skewed_ms=k_ms, skewed_max_abs_err=err)
+            out["voxel_vote"].update(skewed_ms=k_ms, skewed_card_ms=kc_ms,
+                                     skewed_max_abs_err=err)
             continue
         idx, val = vv.voxel_taps(ev, nb, h, w)
         idx, val = idx.reshape(-1), val.reshape(-1)
@@ -1049,9 +1068,10 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
             lambda: vv.voxel_vote_plain(ev, nb, h, w),
             lambda: img.zero_().index_add_(0, idx, val), flush, nbytes)
         if label == "sorted":
-            out["voxel_vote"] = dict(nums, max_abs_err=err)
+            out["voxel_vote"] = dict(nums, max_abs_err=err, card_ms=kc_ms)
         else:
             out["voxel_vote"].update(unsorted_ms=nums["ms"],
+                                     unsorted_card_ms=kc_ms,
                                      unsorted_plain_ms=nums["plain_ms"],
                                      unsorted_library_ms=nums["library_ms"],
                                      unsorted_max_abs_err=err)
@@ -1601,6 +1621,9 @@ def phase_bwd_timing(torch):
     slab = torch.empty(b, c_total, H // 8, W // 8, device="cuda")
     totals["fwd_ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
         levels, RADIUS, slab), flush)
+    totals["fwd_card_ms"] = time_ms(
+        torch, lambda: cw.corr_window_lookup_levels(levels, RADIUS, slab),
+        flush, card=True)
     del slab
     for lvl, (t, h2, w2) in enumerate(LEVELS):
         corr, cx, cy, off = levels[lvl]
@@ -1646,7 +1669,8 @@ def phase_bwd_timing(torch):
           f"bound={totals['bound_ms'] * 1e3:.1f} us "
           f"plain={totals['plain_ms'] * 1e3:.1f} us grid_sample backward="
           f"{totals['library_ms'] * 1e3:.1f} us; the forward kernel at these "
-          f"shapes (1 launch) {totals['fwd_ms'] * 1e3:.1f} us (bound "
+          f"shapes (1 launch) {totals['fwd_ms'] * 1e3:.1f} us (card "
+          f"{totals['fwd_card_ms'] * 1e3:.1f} us; bound "
           f"{totals['fwd_bound_ms'] * 1e3:.1f} us)")
     return totals
 
@@ -2590,7 +2614,8 @@ FLOW_WORK = {
     "voxel_vote": "B=14, M=2^20 cell-sorted events -> 14 x 15 x 480 x 640 "
                   "(unsorted_*: the same events in random order; skewed_*: "
                   "half the live events of each sample in one 16 x 64 "
-                  "region, 1% on one pixel)",
+                  "region, 1% on one pixel; *card_ms: the card's time "
+                  "alone, the host's enqueue covered by a spin)",
     "grid_segment_sum": "B=14, M=2^20 unsorted events (padding skipped), "
                         "LUT [1800, 160, 2] f32 (library: torch.gather's "
                         "backward, scatter_add_; traj_*: [6, 3936, 128, 2], "
@@ -2630,9 +2655,14 @@ def main() -> int:
         "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"], "bound_by": "bytes",
         "library_ms": totals["library_ms"],
-        "levels_one_by_one_ms": totals["level_ms"], "staging": "cp.async",
+        "card_ms": totals["card_ms"],
+        "levels_one_by_one_ms": totals["level_ms"],
+        "levels_one_by_one_card_ms": totals["level_card_ms"],
+        "staging": "cp.async",
         "work": "one refinement iteration: levels 1-4 in one launch, B=8, "
-                "384x512, f32 (library: F.grid_sample per level, summed)",
+                "384x512, f32 (library: F.grid_sample per level, summed; "
+                "*card_ms: the card's time alone, the host's enqueue "
+                "covered by a spin)",
     }]
 
     # flow-train, exact KNN and host voxel grids

@@ -1,0 +1,305 @@
+"""Time two kernels of two or more checkouts of the PyTorch port on one card,
+under the same timers, in one call: the corr-window lookup (kernel row 1)
+and the voxel vote (kernel row 8).
+
+    python3 kernel_ab.py parent=path/to/other/checkout change=. \
+        --order parent,change,change,parent
+
+Each run is a process of its own that imports `motionpriorcmax_tpu_torch`
+from its checkout (and builds that checkout's `corr_window.cu` and
+`voxel_vote.cu` there), makes the same inputs from a seed on the card, holds
+every kernel result against its plain version, and times, with the L2
+flushed before each call:
+
+  lookup       one refinement iteration of the B=8 EVIMO2 traj-val path:
+               `CorrPyramidLookup` over the four pyramid levels, f32, as
+               `lookup_corr_pyramid` calls it (the launches it makes are
+               counted), and level 1 alone;
+  voxel_vote   B=14, M=2^20, 15 x 480 x 640: 1,000,000 events per sample,
+               positives then negatives then padding; "sorted": each
+               polarity half stable-sorted by 4 x 4-pixel cell (a stand-in
+               for the loader's LUT-cell sort), "unsorted": the same events
+               in random order, "skewed": half the live events of each
+               sample in one 16 x 64 region, 1% on one pixel.
+
+Two timers, each the median of 20 calls between two CUDA events:
+  ms       the events recorded around the call as `chip_smoke.py`'s `ms`
+           is: when the host takes longer to enqueue the call than the card
+           takes to flush, the host's launch overhead is in it;
+  card_ms  a spin of the card (torch.cuda._sleep) between the flush and the
+           start event covers the host's enqueue: the card's time alone.
+And host_us, the median wall time of the Python call itself, without a
+synchronize (what the host spends to enqueue it).
+
+Prints one JSON line per run ({"run": label, "tree": path, ...}) and then a
+table of every run's numbers.
+
+    python3 kernel_ab.py --staging
+
+instead times level 1 of that lookup (f32, B=8) with its windows staged two
+ways, in this checkout: the port's kernel (4-byte cp.async copies) and
+tools/corr_window_tma.cu (one tensor-map load per window, TMA), each held
+against the plain version, and prints one JSON line.
+
+Needs one CUDA card; exits non-zero without.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS, W,
+                        level_inputs, nvidia_smi_line)
+
+VOX_B, VOX_M, VOX_LIVE, VOX_NB, VOX_H, VOX_W = 14, 1 << 20, 1_000_000, 15, 480, 640
+CELL = 4
+REPS = 20
+
+
+def timers(torch, fn, flush, reps=REPS, warmup=3):
+    """(ms, card_ms, host_us) of fn, as the module docstring defines them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for spin in (False, True):
+        times, host = [], []
+        for _ in range(reps):
+            flush.zero_()
+            if spin:
+                torch.cuda._sleep(HOST_COVER_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out.append((statistics.median(times), statistics.median(host) * 1e6))
+    (ms, host_us), (card_ms, _) = out
+    return ms, card_ms, host_us
+
+
+def run_lookup(torch, flush):
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    tensors = []
+    for lvl, (t, h2, w2) in enumerate(LEVELS):
+        tensors.extend(level_inputs(torch, t, h2, w2, lvl, 200 + lvl,
+                                    torch.float32))
+    k = (2 * RADIUS + 1) ** 2
+    want = torch.empty(BATCH, sum(t for t, _, _ in LEVELS) * k, H // 8, W // 8,
+                       device="cuda")
+    off = 0
+    for i, (t, _, _) in enumerate(LEVELS):
+        corr, cx, cy = tensors[3 * i:3 * i + 3]
+        cw.corr_window_lookup_plain(corr, cx, cy, RADIUS, want, off)
+        off += t * k
+
+    def pyramid():
+        with torch.no_grad():
+            return cw.CorrPyramidLookup.apply(RADIUS, H // 8, W // 8, *tensors)
+
+    before = cw.corr_window_lookup.launches
+    got = pyramid()
+    torch.cuda.synchronize()
+    launches = cw.corr_window_lookup.launches - before
+    err = float((got - want).abs().max())
+    ms, card_ms, host_us = timers(torch, pyramid, flush)
+    out1 = torch.empty(BATCH, LEVELS[0][0] * k, H // 8, W // 8, device="cuda")
+    l1 = timers(torch, lambda: cw.corr_window_lookup(
+        *tensors[:3], RADIUS, out1, 0), flush)
+    return {"launches_per_iteration": launches, "max_abs_err": err,
+            "ms": ms, "card_ms": card_ms, "host_us": host_us,
+            "level1_ms": l1[0], "level1_card_ms": l1[1],
+            "level1_host_us": l1[2]}
+
+
+def vote_batches(torch):
+    """(sorted, unsorted, skewed) [B, M, 6] event batches on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    b, m, n = VOX_B, VOX_M, VOX_LIVE
+    u = lambda *s: torch.rand(*s, device=dev, generator=g)  # noqa: E731
+    ev = torch.zeros(b, m, 6, device=dev)
+    ev[:, :n, 0] = u(b, n) * VOX_H
+    ev[:, :n, 1] = u(b, n) * VOX_W
+    ev[:, :n, 2] = u(b, n)
+    ev[:, :n, 3] = (u(b, n) < 0.5).float()
+    ev[:, :n, 5] = 1.0
+    # Positives first, then negatives, then padding; each half by cell.
+    cell = ((ev[..., 0] // CELL) * (VOX_W // CELL) + ev[..., 1] // CELL)
+    key = torch.where(ev[..., 5] > 0, (1 - ev[..., 3]) * 1e6 + cell,
+                      torch.full_like(cell, 3e6))
+    order = torch.sort(key, dim=1, stable=True).indices
+    srt = torch.gather(ev, 1, order[..., None].expand(-1, -1, 6))
+    perm = torch.argsort(u(b, m), dim=1)
+    unsorted = torch.gather(srt, 1, perm[..., None].expand(-1, -1, 6))
+    skewed = unsorted.clone()
+    y0 = (u(b) * (VOX_H - 16)).floor()
+    x0 = (u(b) * (VOX_W - 64)).floor()
+    half = n // 2
+    live = torch.argsort(u(b, m) + (unsorted[..., 5] == 0) * 2, dim=1)[:, :half]
+    rows = torch.arange(b, device=dev)[:, None]
+    skewed[rows, live, 0] = y0[:, None] + u(b, half) * 16
+    skewed[rows, live, 1] = x0[:, None] + u(b, half) * 64
+    hot = live[:, :n // 100]
+    skewed[rows, hot, 0] = y0[:, None] + 7.5
+    skewed[rows, hot, 1] = x0[:, None] + 31.25
+    return {"sorted": srt, "unsorted": unsorted, "skewed": skewed}
+
+
+def run_vote(torch, flush):
+    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
+
+    out = {}
+    for label, ev in vote_batches(torch).items():
+        got = vv.voxel_vote(ev, VOX_NB, VOX_H, VOX_W)
+        want = vv.voxel_vote_plain(ev, VOX_NB, VOX_H, VOX_W)
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        del got, want
+        ms, card_ms, host_us = timers(
+            torch, lambda: vv.voxel_vote(ev, VOX_NB, VOX_H, VOX_W), flush)
+        out[label] = {"ms": ms, "card_ms": card_ms, "host_us": host_us,
+                      "max_rel_err": err}
+    return out
+
+
+def staging() -> None:
+    """Level 1 staged by cp.async (the port's kernel) and by TMA."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+    from motionpriorcmax_tpu_torch.ops.cuda.build import NVCC_FLAGS, find_nvcc
+
+    src = Path(__file__).resolve().parent / "tools" / "corr_window_tma.cu"
+    lib = src.parent / "_build" / (
+        "libcorr_window_tma-"
+        + hashlib.sha256(src.read_bytes()).hexdigest()[:16] + ".so")
+    if not lib.is_file():
+        lib.parent.mkdir(exist_ok=True)
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib),
+                               str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_ab: nvcc failed:\n{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).corr_window_tma_level
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.restype = i
+    fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, p, i, i, i, i, i, p]
+
+    t, h2, w2 = LEVELS[0]
+    corr, cx, cy = level_inputs(torch, t, h2, w2, 0, 200, torch.float32)
+    k = (2 * RADIUS + 1) ** 2
+    shape = (BATCH, t * k, H // 8, W // 8)
+    want = cw.corr_window_lookup_plain(corr, cx, cy, RADIUS,
+                                       torch.empty(shape, device="cuda"), 0)
+    out_c = torch.full(shape, float("nan"), device="cuda")
+    out_t = torch.full(shape, float("nan"), device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def tma():
+        err = fn(corr.data_ptr(), cx.data_ptr(), cy.data_ptr(), corr.numel()
+                 // (h2 * w2), h2, w2, out_t.data_ptr(), BATCH, Q, t * k, 0,
+                 sms, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"kernel_ab: TMA lookup failed: {err}")
+
+    def cp_async():
+        cw.corr_window_lookup(corr, cx, cy, RADIUS, out_c, 0)
+
+    tma()
+    cp_async()
+    torch.cuda.synchronize()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    res = {"level": f"1: N={corr.numel() // (h2 * w2)} maps of {h2}x{w2} f32"}
+    for name, f, got in (("cp_async", cp_async, out_c), ("tma", tma, out_t)):
+        ms, card_ms, host_us = timers(torch, f, flush)
+        res[name] = {"ms": ms, "card_ms": card_ms, "host_us": host_us,
+                     "max_abs_err": float((got - want).abs().max())}
+    print(json.dumps(res), flush=True)
+
+
+def worker(label: str, tree: str) -> None:
+    tree = os.path.abspath(tree)
+    sys.path[0] = tree                      # this checkout's package only
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    import motionpriorcmax_tpu_torch as pkg
+    from motionpriorcmax_tpu_torch.ops.cuda.build import build_library
+
+    if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"kernel_ab: imported {pkg.__file__}, not {tree}'s")
+    for name in ("corr_window", "voxel_vote"):
+        build_library(name)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    res = {"run": label, "tree": tree, "lookup": run_lookup(torch, flush)}
+    torch.cuda.empty_cache()
+    res["voxel_vote"] = run_vote(torch, flush)
+    print(json.dumps(res), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*", help="label=checkout path")
+    ap.add_argument("--order", help="labels in run order (default: as given)")
+    ap.add_argument("--staging", action="store_true",
+                    help="level 1 staged by cp.async and by TMA, here")
+    ap.add_argument("--worker", nargs=2, metavar=("LABEL", "TREE"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(*args.worker)
+        return 0
+    if args.staging:
+        print(nvidia_smi_line(), flush=True)
+        staging()
+        return 0
+    trees = dict(t.split("=", 1) for t in args.trees)
+    if not trees:
+        ap.error("give at least one label=path")
+    order = args.order.split(",") if args.order else list(trees)
+    print(nvidia_smi_line(), flush=True)
+    results = []
+    for label in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", label,
+             trees[label]], capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            print(f"kernel_ab: run {label} failed (rc {proc.returncode})")
+            return 1
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        results.append(json.loads(line))
+    print("run        lookup ms / card_ms / host_us (launches)  level-1 ms / "
+          "card_ms | vote ms / card_ms / host_us: sorted, unsorted, skewed")
+    for r in results:
+        lk, vv = r["lookup"], r["voxel_vote"]
+        vote = "  ".join(
+            f"{vv[k]['ms'] * 1e3:.1f}/{vv[k]['card_ms'] * 1e3:.1f}/"
+            f"{vv[k]['host_us']:.0f}" for k in ("sorted", "unsorted", "skewed"))
+        print(f"{r['run']:<10} {lk['ms'] * 1e3:.1f} / {lk['card_ms'] * 1e3:.1f}"
+              f" / {lk['host_us']:.0f} ({lk['launches_per_iteration']})   "
+              f"{lk['level1_ms'] * 1e3:.1f} / {lk['level1_card_ms'] * 1e3:.1f}"
+              f" | {vote}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,8 +34,9 @@
 // in shared memory: the windows of the next two tiles are in flight while
 // a tile's 81 features are combined and stored.  Windows are staged with
 // 4-byte cp.async (LDGSTS) copies, zero-filled (src-size 0) outside the
-// map, for any alignment and map size; bf16 rows are copied as aligned
-// pairs, so a row may start one value into its staged row (the combine
+// map, for any alignment and map size; bf16 rows are copied as pairs
+// aligned by address (a volume may start at an odd element), so a row may
+// start one value into its staged row (the combine
 // reads that offset) and a pair may straddle into a neighbouring row (the
 // combine masks columns outside the map).  Per tile:
 //   A. 32 threads turn the centres into origin, fractions, output offset
@@ -45,10 +46,11 @@
 //      one k of 32 consecutive queries: one coalesced 128-byte store into
 //      the NCHW output.  Slot strides are odd in 4-byte words, so the
 //      warp's 32 windows sit in 32 different banks.
-// The Hopper tensor-memory accelerator (TMA) staged the windows too, one
-// 3-D tensor-map load per window; it was slower on level 1 (a load must
-// start at a 16-byte aligned column, so a box of 16 x 10 f32 lands for 10
-// x 10 values, issued one window at a time) and is not kept.  Offsets into
+// The Hopper tensor-memory accelerator (TMA) can stage the windows too, one
+// 3-D tensor-map load per window (tools/corr_window_tma.cu; `kernel_ab.py
+// --staging` times both ways on level 1): a load must start at a 16-byte
+// aligned column, so a box of 16 x 10 f32 lands for 10 x 10 values into
+// 128-byte aligned slots; it is not kept (PERF.md has the times).  Offsets into
 // the volume and the output are 64-bit (the batch-8 level-1 volume has
 // 3.8e8 elements); origins are clamped before the integer cast.
 
@@ -65,6 +67,7 @@ constexpr int kThreads = 256;
 constexpr int kTile = 32;                      // queries per tile
 constexpr int kMaxLevels = 8;
 constexpr int kStages = 3;                     // window slots in flight
+constexpr int kLevelFields = 7;                // per level in the host table
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -174,13 +177,17 @@ __device__ __forceinline__ void stage_meta(const FwdParams& p, long long tile,
   m.y0[tid] = y0;
   int par = 0;
   if (sizeof(T) == 2) {
-    // Parity of the element index (n * H2 + y) * W2 + x0 of each row's
-    // first value: the pair copies start at the even index below it.
+    // Parity of the 2-byte word address of each row's first value, the
+    // element index (n * H2 + y) * W2 + x0 plus the volume's own offset (a
+    // view may start at an odd element): the pair copies start at the
+    // 4-byte aligned word at or below it.
     const int w_odd = L.w2 & 1;
     const int n_row = (int)(n & 1) & (L.h2 & 1);
+    const int base_odd =
+        (int)((reinterpret_cast<uintptr_t>(L.corr) >> 1) & 1);
 #pragma unroll
     for (int i = 0; i < 2 * R + 2; ++i) {
-      par |= ((((n_row ^ (y0 + i)) & w_odd) ^ x0) & 1) << i;
+      par |= ((((n_row ^ (y0 + i)) & w_odd) ^ x0 ^ base_odd) & 1) << i;
     }
   }
   m.par[tid] = par;
@@ -227,6 +234,8 @@ __device__ __forceinline__ void stage_windows(const FwdParams& p,
     // a row starting at an even element index at or one below its first.
     constexpr int kPairs = kRow / 2;
     const long long total = (long long)L.n * h2 * w2;
+    const T* aligned = reinterpret_cast<const T*>(
+        reinterpret_cast<uintptr_t>(corr) & ~uintptr_t(3));
     for (int e = tid; e < kTile * kWin * kPairs; e += kThreads) {
       const int ql = e / (kWin * kPairs);
       const int rem = e - ql * kWin * kPairs;
@@ -237,7 +246,7 @@ __device__ __forceinline__ void stage_windows(const FwdParams& p,
       const int off = (m.par[ql] >> i) & 1;
       const int c0 = m.x0[ql] - off + 2 * pr;  // column of the pair's first
       int bytes = 0;
-      const T* src = corr;
+      const T* src = aligned;                  // 4-byte aligned, read nothing
       if (yy >= 0 && yy < h2 && c0 + 1 >= 0 && c0 < w2) {
         const long long g = ((first + ql) * h2 + yy) * w2 + c0;
         src = corr + g;
@@ -320,16 +329,12 @@ corr_window_lookup_kernel(const __grid_constant__ FwdParams p) {
 }
 
 // Persistent grid: as many blocks as fit on the card, at most one per tile.
+// The occupancy is asked once; the SM count comes from the caller's cache.
 template <typename T>
-cudaError_t launch_fwd(const FwdParams& p, cudaStream_t s) {
+cudaError_t launch_fwd(const FwdParams& p, int sms, cudaStream_t s) {
   static int blocks_per_sm = 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
   if (blocks_per_sm == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks_per_sm, corr_window_lookup_kernel<T>, kThreads, 0);
     if (err != cudaSuccess) return err;
     if (blocks_per_sm < 1) blocks_per_sm = 1;
@@ -615,13 +620,14 @@ cudaError_t launch_bwd(const T* corr, const float* cx, const float* cy,
 // ([N_l, H2_l, W2_l], all f32 or all bf16), the centres cx[l], cy[l]
 // ([N_l] f32), N_l = T_l * batch * q_per_map, and its first channel
 // chan_off[l] in the [batch, c_total, q_per_map] output.
+// table: kLevelFields values per level (volume, cx, cy pointers, query
+// count, H2, W2, channel offset); sms: the card's multiprocessor count.
 extern "C" int corr_window_lookup_levels(
-    int n_levels, const void* const* corr, const float* const* cx,
-    const float* const* cy, const long long* n_queries, const int* h2,
-    const int* w2, const int* chan_off, int corr_is_bf16, float* out,
-    int radius, int batch, int q_per_map, int c_total, void* stream) {
+    int n_levels, const long long* table, int corr_is_bf16, float* out,
+    int radius, int batch, int q_per_map, int c_total, int sms,
+    void* stream) {
   if (radius != kRadius || n_levels < 1 || n_levels > kMaxLevels ||
-      batch < 1 || q_per_map < 1) {
+      batch < 1 || q_per_map < 1 || sms < 1) {
     return (int)cudaErrorInvalidValue;
   }
   FwdParams p;
@@ -629,19 +635,21 @@ extern "C" int corr_window_lookup_levels(
   long long tiles = 0;
   int k = 0;
   for (int l = 0; l < n_levels; ++l) {
-    if (n_queries[l] < 0 || h2[l] < 1 || w2[l] < 1) {
+    const long long* f = table + (long long)l * kLevelFields;
+    if (f[3] < 0 || f[4] < 1 || f[5] < 1 || f[4] > 0x7fffffffLL ||
+        f[5] > 0x7fffffffLL) {
       return (int)cudaErrorInvalidValue;
     }
-    if (n_queries[l] == 0) continue;           // no tiles: left out
+    if (f[3] == 0) continue;                   // no tiles: left out
     LevelDesc& L = p.lv[k];
-    L.corr = corr[l];
-    L.cx = cx[l];
-    L.cy = cy[l];
-    L.n = n_queries[l];
+    L.corr = reinterpret_cast<const void*>(f[0]);
+    L.cx = reinterpret_cast<const float*>(f[1]);
+    L.cy = reinterpret_cast<const float*>(f[2]);
+    L.n = f[3];
     L.tile0 = tiles;
-    L.h2 = h2[l];
-    L.w2 = w2[l];
-    L.chan_off = chan_off[l];
+    L.h2 = (int)f[4];
+    L.w2 = (int)f[5];
+    L.chan_off = (int)f[6];
     tiles += (L.n + kTile - 1) / kTile;
     ++k;
   }
@@ -653,8 +661,8 @@ extern "C" int corr_window_lookup_levels(
   p.q_per_map = q_per_map;
   p.c_total = c_total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = corr_is_bf16 ? launch_fwd<__nv_bfloat16>(p, s)
-                                       : launch_fwd<float>(p, s);
+  const cudaError_t err = corr_is_bf16 ? launch_fwd<__nv_bfloat16>(p, sms, s)
+                                       : launch_fwd<float>(p, sms, s);
   return (int)err;
 }
 

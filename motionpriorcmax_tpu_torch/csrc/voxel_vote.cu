@@ -519,10 +519,13 @@ voxel_accum_kernel(const float4* __restrict__ records,
   }
 }
 
-cudaError_t set_smem(const void* fn, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+// Let fn take as much dynamic shared memory as the card allows a block.
+cudaError_t allow_smem(const void* fn, int optin) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+                              optin - (int)a.sharedSizeBytes);
 }
 
 }  // namespace
@@ -537,9 +540,27 @@ long long voxel_vote_int_scratch(int batch, int m, int h, int w, int ty,
   return 4 * tiles * batch * (2 + chunks) + 1;
 }
 
+// Once per device, before its first voxel_vote: lets the three kernels
+// with dynamic shared memory take up to the card's per-block limit.
+int voxel_vote_setup(void) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err == cudaSuccess) err = allow_smem((const void*)voxel_count_kernel, optin);
+  if (err == cudaSuccess) {
+    err = allow_smem((const void*)voxel_scatter_kernel, optin);
+  }
+  if (err == cudaSuccess) err = allow_smem((const void*)voxel_accum_kernel, optin);
+  return (int)err;
+}
+
 // events [B, M, 6] f32 contiguous; out [B, nbins, H, W] f32, written
 // whole (no zero-fill needed); records: B * M 16-byte records; ints:
-// voxel_vote_int_scratch(...) int32 values.  Tile TY x TX pixels, TX a
+// voxel_vote_int_scratch(...) int32 values.  voxel_vote_setup has run on
+// the current device.  Tile TY x TX pixels, TX a
 // multiple of 4, nbins * TY * TX <= 15360.
 int voxel_vote(const float* events, float* out, int batch, int m, int nbins,
                int h, int w, int ty, int tx, void* records, int* ints,
@@ -578,11 +599,6 @@ int voxel_vote(const float* events, float* out, int batch, int m, int nbins,
   if (err != cudaSuccess) return (int)err;
   if (m > 0) {
     const dim3 grid(g.chunks, batch);
-    err = set_smem((const void*)voxel_count_kernel, hist_bytes);
-    if (err == cudaSuccess) {
-      err = set_smem((const void*)voxel_scatter_kernel, scatter_bytes);
-    }
-    if (err != cudaSuccess) return (int)err;
     voxel_count_kernel<<<grid, kBinThreads, hist_bytes, s>>>(events, counts,
                                                              block_off, g);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -599,8 +615,6 @@ int voxel_vote(const float* events, float* out, int batch, int m, int nbins,
   const int acc_bytes = nbins * ty * tx * (int)sizeof(float)
                         + kAccChunk * (int)sizeof(float4)
                         + ((ty + 1) * (tx + 1) + 1) * (int)sizeof(int);
-  err = set_smem((const void*)voxel_accum_kernel, acc_bytes);
-  if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((n_cells + kCluster - 1) / kCluster * kCluster));
   cfg.blockDim = dim3(kAccThreads);

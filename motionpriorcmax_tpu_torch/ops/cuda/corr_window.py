@@ -149,8 +149,14 @@ def _kernel():
     fn = load_library("corr_window").corr_window_lookup_levels
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [i, p, p, p, p, p, p, p, i, p, i, i, i, i, p]
+    fn.argtypes = [i, p, i, p, i, i, i, i, i, p]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    """The card's multiprocessor count, asked once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _is_cuda(x: torch.Tensor) -> bool:
@@ -161,25 +167,20 @@ def _launch_levels(levels: Sequence[Level], radius: int,
                    out: torch.Tensor) -> None:
     """One launch of the kernel over every level (checked by the caller)."""
     fn = _kernel()
-    n = len(levels)
-
-    def arr(ctype, values):
-        return (ctype * n)(*values)
-
     corr0 = levels[0][0]
     b, q = corr0.shape[1:3]
-    with torch.cuda.device(corr0.device):
-        stream = torch.cuda.current_stream(corr0.device).cuda_stream
-        err = fn(n, arr(ctypes.c_void_p, [c.data_ptr() for c, *_ in levels]),
-                 arr(ctypes.c_void_p, [x.data_ptr() for _, x, _, _ in levels]),
-                 arr(ctypes.c_void_p, [y.data_ptr() for _, _, y, _ in levels]),
-                 arr(ctypes.c_longlong, [c.shape[0] * b * q
-                                         for c, *_ in levels]),
-                 arr(ctypes.c_int, [c.shape[3] for c, *_ in levels]),
-                 arr(ctypes.c_int, [c.shape[4] for c, *_ in levels]),
-                 arr(ctypes.c_int, [off for *_, off in levels]),
-                 int(corr0.dtype == torch.bfloat16), out.data_ptr(), radius,
-                 b, q, out.shape[1], stream)
+    # Per level: volume, cx, cy, query count, H2, W2, channel offset
+    # (kLevelFields in the source).
+    table = (ctypes.c_longlong * (7 * len(levels)))(*[
+        v for corr, cx, cy, off in levels
+        for v in (corr.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+                  corr.shape[0] * b * q, corr.shape[3], corr.shape[4], off)])
+    dev = corr0.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(len(levels), table, int(corr0.dtype == torch.bfloat16),
+                 out.data_ptr(), radius, b, q, out.shape[1],
+                 _sm_count(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"corr_window_lookup kernel failed: cudaError_t {err}")
 

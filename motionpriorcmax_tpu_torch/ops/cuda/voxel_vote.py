@@ -230,7 +230,18 @@ def _library():
     lib.voxel_vote.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
     lib.voxel_vote_int_scratch.restype = ctypes.c_longlong
     lib.voxel_vote_int_scratch.argtypes = [i, i, i, i, i, i]
+    lib.voxel_vote_setup.restype = i
+    lib.voxel_vote_setup.argtypes = []
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(device_index: int) -> None:
+    """The kernels' shared-memory limits, set once per device."""
+    with torch.cuda.device(device_index):
+        err = _library().voxel_vote_setup()
+    if err != 0:
+        raise RuntimeError(f"voxel_vote set-up failed: cudaError_t {err}")
 
 
 def voxel_vote(events: torch.Tensor, num_bins: int, height: int,
@@ -250,17 +261,20 @@ def voxel_vote(events: torch.Tensor, num_bins: int, height: int,
     ty, tx = voxel_tile_shape(num_bins, height, width)
     lib = _library()
     dev = events.device
+    _setup(dev.index)
     out = torch.empty(bsz, num_bins, height, width, dtype=torch.float32,
                       device=dev)
-    records = torch.empty(bsz * m, 4, dtype=torch.float32, device=dev)
-    ints = torch.empty(lib.voxel_vote_int_scratch(bsz, m, height, width, ty,
-                                                  tx),
-                       dtype=torch.int32, device=dev)
+    # One scratch buffer: the 16-byte records, then the int32 counters.
+    rec_bytes = bsz * m * 16
+    n_ints = lib.voxel_vote_int_scratch(bsz, m, height, width, ty, tx)
+    scratch = torch.empty(rec_bytes + 4 * n_ints, dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.voxel_vote(events.data_ptr(), out.data_ptr(), bsz, m,
                              num_bins, height, width, ty, tx,
-                             records.data_ptr(), ints.data_ptr(), stream)
+                             scratch.data_ptr(),
+                             scratch.data_ptr() + rec_bytes, stream)
     if err != 0:
         raise RuntimeError(f"voxel_vote kernel failed: cudaError_t {err}")
     voxel_vote.launches += 1

@@ -289,3 +289,38 @@ def test_fused_levels_match_plain_on_card(dtype):
     want = cw.corr_window_lookup_levels_plain(
         levels, 4, torch.full_like(out, float("nan")))
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_levels_of_offset_views_match_plain_on_card(dtype):
+    # Volumes that are contiguous views starting 1 and 3 elements into
+    # their storage (a bf16 view then starts at an odd 2-byte word, so its
+    # aligned pairs begin one value before the view), with windows on the
+    # first and the last value of each volume, against the plain lookup.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    tdt = getattr(torch, dtype)
+    b, h1, w1 = 2, 3, 5
+    q = h1 * w1
+    levels, off = [], 0
+    for (t, h2, w2), start in zip([(2, 9, 13), (1, 6, 10), (1, 5, 7)],
+                                  [1, 3, 1]):
+        n = t * b * q * h2 * w2
+        store = torch.randn(n + 4, generator=gen).to(tdt).to(dev)
+        corr = store[start:start + n].view(t, b, q, h2, w2)
+        assert corr.is_contiguous() and corr.storage_offset() == start
+        cx = torch.rand(t, b, q, generator=gen) * (w2 + 8) - 4
+        cy = torch.rand(t, b, q, generator=gen) * (h2 + 8) - 4
+        cx[0, 0, 0], cy[0, 0, 0] = 0.25, 0.5              # the first value
+        cx[-1, -1, -1], cy[-1, -1, -1] = w2 - 0.75, h2 - 0.5  # the last
+        levels.append((corr, cx.to(dev), cy.to(dev), off))
+        off += t * 81
+    out = torch.full((b, off, h1, w1), float("nan"), device=dev)
+    cw.corr_window_lookup_levels(levels, 4, out)
+    torch.cuda.synchronize()
+    want = cw.corr_window_lookup_levels_plain(
+        levels, 4, torch.full_like(out, float("nan")))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)

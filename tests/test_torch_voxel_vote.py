@@ -246,24 +246,62 @@ def _card_events(rng, b, m, h, w, skew=False):
     return ev
 
 
+CARD_H, CARD_W, CARD_NB = 40, 200, 5
+
+
+def _card_case(case):
+    rng = np.random.default_rng(7)
+    b, m = {"uniform": (3, 30011), "skewed": (2, 140000),
+            "padding": (2, 9000), "ragged": (1, 12345)}[case]
+    ev = _card_events(rng, b, m, CARD_H, CARD_W, skew=case == "skewed")
+    if case == "padding":
+        ev[..., 5] = 0.0
+    return ev
+
+
+def _hot_records():
+    """kHotRecords of the source: the records a tile reads at which its
+    cluster shares the work."""
+    import re
+
+    from motionpriorcmax_tpu_torch.ops.cuda.build import CSRC_DIR
+
+    src = (CSRC_DIR / "voxel_vote.cu").read_text()
+    return int(re.search(r"constexpr int kHotRecords = (\d+);", src).group(1))
+
+
+def test_skewed_card_case_has_hot_tiles():
+    # The card test's skewed batch must take the cluster-shared path: in
+    # each sample one tile reads at least 1.5x the threshold's records
+    # (counted by the tiling's plain twin), and the uniform batch none.
+    ty, tx = vv.voxel_tile_shape(CARD_NB, CARD_H, CARD_W)
+    hot = _hot_records()
+    for case, want_hot in (("skewed", True), ("uniform", False)):
+        ev = torch.from_numpy(_card_case(case))
+        readers = vv.voxel_tile_readers(ev, CARD_NB, CARD_H, CARD_W, ty, tx)
+        tiles = -(-CARD_H // ty) * -(-CARD_W // tx)
+        for i in range(ev.shape[0]):
+            r = readers[:, i].reshape(-1)
+            reads = torch.bincount(r[r >= 0], minlength=tiles)
+            if want_hot:
+                assert int(reads.max()) >= 1.5 * hot, (case, i, int(reads.max()))
+            else:
+                assert int(reads.max()) < hot, (case, i, int(reads.max()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["uniform", "skewed", "padding", "ragged"])
 def test_tiled_kernel_matches_plain_on_card(case):
     """The tiled kernel against its plain version: uniform events, a
-    skewed batch whose hot tile holds more than the cluster-split
-    threshold (16384 records), all padding (the grid is written whole:
-    zeros), and B = 1 with a ragged M; within 1e-5 of the largest voxel
-    (shared atomics add a voxel's votes in a run-dependent order)."""
+    skewed batch whose hot tile reads at least 1.5x the cluster-split
+    threshold (kHotRecords, test_skewed_card_case_has_hot_tiles), all
+    padding (the grid is written whole: zeros), and B = 1 with a ragged
+    M; within 1e-5 of the largest voxel (a voxel's votes are added in the
+    order of the sorted records, which depends on the run)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(7)
-    h, w, nb = 40, 200, 5
-    b, m = {"uniform": (3, 30011), "skewed": (2, 70000),
-            "padding": (2, 9000), "ragged": (1, 12345)}[case]
-    ev = _card_events(rng, b, m, h, w, skew=case == "skewed")
-    if case == "padding":
-        ev[..., 5] = 0.0
-    e = torch.from_numpy(ev).cuda()
+    h, w, nb = CARD_H, CARD_W, CARD_NB
+    e = torch.from_numpy(_card_case(case)).cuda()
     before = vv.voxel_vote.launches
     got = vv.voxel_vote(e, nb, h, w)
     torch.cuda.synchronize()
