@@ -36,13 +36,17 @@ Phases, one or more lines each; any failure exits non-zero:
      LUT-cell sort, cell_ends); the collate time of one batch
   9. kernels vs plain at the path's shapes: the IWE vote forward and
      backward (B=14, M=2^19 per polarity half, 480x640) on cell-sorted
-     events (kernel row 3) and on the same events unsorted (row 4), the LUT
-     gather (LUT [14, 1800, 160, 2], 2^20 events) and its sorted segment
-     sum (S=2); 5% of the warped coordinates far outside the image
+     events (kernel row 3) and on the same events unsorted (row 4), the
+     forward also on a skewed batch (a hot pixel, sorted again) and with a
+     6x wider flow, with the share of taps that the forward's plain twin
+     votes through its shared-memory band; the LUT gather (LUT [14, 1800,
+     160, 2], 2^20 events) and its sorted segment sum (S=2); 5% of the
+     warped coordinates far outside the image
  10. timing of each kernel (CUDA events, L2 flushed): kernel, bytes bound
      at 3.35 TB/s, plain version, and one PyTorch call as the yardstick
      (index_put_ accumulate for the vote, advanced indexing for the
-     gather, index_add_ for the segment sum; none for the vote backward)
+     gather, index_add_ for the segment sum; none for the vote backward);
+     the vote forward's card time alone on its four inputs
  11. training: train_flow (the CLI's loop) at full width with seeded
      weights on 1 warm-up + 3 timed steps and one val pass with GT flow,
      checkpoint to a temporary directory: step ms, events/s, peak memory,
@@ -656,10 +660,10 @@ def flow_configs(tree, **model_overrides):
     return build(tree)
 
 
-def flow_samples(seed, n_samples, n_events, h, w, nb, gt=False):
+def flow_samples(seed, n_samples, n_events, h, w, nb, gt=False, voxel=True):
     """DSEC-like samples from a numpy seed: rectified (float) pixel
     coordinates, sorted normalized times, random polarity, host voxel
-    grids; with `gt` a GT flow and validity mask."""
+    grids (unless not `voxel`); with `gt` a GT flow and validity mask."""
     from motionpriorcmax_tpu_torch.data.host_ops import voxelize_normalized_host
 
     rng = np.random.default_rng(seed)
@@ -672,8 +676,9 @@ def flow_samples(seed, n_samples, n_events, h, w, nb, gt=False):
                        rng.integers(0, 2, n_events),
                        np.clip(np.searchsorted(edges, t) - 1, 0, None)],
                       -1).astype(np.float32)
-        s = {"pos_events": ev[ev[:, 3] == 1], "neg_events": ev[ev[:, 3] == 0],
-             "voxel": voxelize_normalized_host(ev, nb, h, w)}
+        s = {"pos_events": ev[ev[:, 3] == 1], "neg_events": ev[ev[:, 3] == 0]}
+        if voxel:
+            s["voxel"] = voxelize_normalized_host(ev, nb, h, w)
         if gt:
             s["forward_flow"] = (3 * rng.standard_normal((2, h, w))
                                  ).astype(np.float32)
@@ -718,19 +723,75 @@ def phase_flow_batch(cfg, loss_cfg, batch_size):
     return train, batch, unsorted_train, unsorted
 
 
-def vote_inputs(torch, events, npos, seed):
+def vote_inputs(torch, events, npos, seed, flow_scale=1.0):
     """Warped coordinates and weights of one polarity half, the layout
-    make_iwes votes: (y, x) plus a smooth flow, 5% of them far outside."""
+    make_iwes votes: (y, x) plus a smooth flow of up to 8 x flow_scale
+    px, 5% of them far outside."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     y, x = events[..., 0], events[..., 1]
-    coords = torch.stack([y + 8 * torch.sin(x / 50), x + 6 * torch.cos(y / 40)],
-                         dim=-1)
+    coords = torch.stack([y + 8 * flow_scale * torch.sin(x / 50),
+                          x + 6 * flow_scale * torch.cos(y / 40)], dim=-1)
     far = torch.rand(coords.shape[:2], device="cuda", generator=g) < 0.05
     sign = torch.where(torch.rand(coords.shape[:2], device="cuda",
                                   generator=g) < 0.5, -1.0, 1.0)
     coords = torch.where(far[..., None], (sign * 1e9)[..., None], coords)
     weight = events[..., 5] * (1 - (events[..., 2] - 0.5).abs())
     return coords[:, :npos], weight[:, :npos]       # batch-strided views
+
+
+def vote_batch(seed=7):
+    """Phase 8's cell-sorted host batch without its voxel grids (the
+    vote's inputs for kernel_ab.py): 14 samples of FLOW_EVENTS events at
+    dsec.yaml's shapes, collated with the loader's LUT-cell sort."""
+    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+
+    cfg, loss_cfg = flow_configs(DSEC_CONFIG)
+    h, w = cfg.image_shape
+    samples = flow_samples(seed, DSEC_CONFIG["data"]["batch_size"],
+                           FLOW_EVENTS, h, w, cfg.num_bins, gt=True,
+                           voxel=False)
+    return collate_fixed_capacity(
+        samples, FLOW_CAPACITY, polarity_aware=True,
+        lut_cell_sort_params=(loss_cfg.image_shape, loss_cfg.num_bins,
+                              loss_cfg.lut_superpixel_size)), loss_cfg
+
+
+def vote_cases(torch, batch, h, w, nb, superpixel):
+    """The IWE vote's inputs at the path's shapes, one polarity half of
+    the batch (B x num_pos_events), as {label: (coords, weight)}:
+      sorted    the half as the path votes it, cell-sorted (row 3)
+      unsorted  the same events in random order (row 4)
+      skewed    per sample half the live events in one 16 x 64 region
+                and 1% on one pixel, then sorted again by the loader's
+                LUT-cell sort (a hot pixel's events adjacent)
+      wide      the sorted half with its flow x 6 (up to 48 px): chunks
+                whose taps span more rows than the band holds."""
+    from motionpriorcmax_tpu_torch.data.host_ops import lut_cell_sort
+
+    npos = batch["num_pos_events"]
+    events = torch.from_numpy(batch["events"]).cuda()
+    b = events.shape[0]
+    coords, weight = vote_inputs(torch, events, npos, 11)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    perm = torch.argsort(torch.rand(b, npos, device="cuda", generator=g), 1)
+    skew = skewed_events(batch["events"], h, w, 12)
+    for i in range(b):
+        skew[i] = lut_cell_sort(skew[i], (h, w), nb, superpixel,
+                                num_pos_events=npos)[0]
+    return {
+        "sorted": (coords, weight),
+        "unsorted": (torch.gather(coords, 1, perm[..., None].expand(-1, -1, 2)),
+                     torch.gather(weight, 1, perm)),
+        "skewed": vote_inputs(torch, torch.from_numpy(skew).cuda(), npos, 11),
+        "wide": vote_inputs(torch, events, npos, 11, flow_scale=6.0),
+    }
+
+
+def vote_band_share(iv, coords, weight, h, w):
+    """Share of the live taps that the forward kernel's partition (its
+    plain twin) votes through the shared-memory band."""
+    _, n_band, n_direct = iv.iwe_vote_banded_plain(coords, weight, h, w)
+    return n_band / max(1, n_band + n_direct)
 
 
 def time_kernel(torch, label, fn, plain, library, flush, nbytes):
@@ -774,30 +835,47 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
     events = torch.from_numpy(batch["events"]).cuda()
     ends = torch.from_numpy(batch["lut_cell_ends"]).cuda()
     b, m, _ = events.shape
-    coords, weight = vote_inputs(torch, events, npos, 11)
+    cases = vote_cases(torch, batch, h, w, loss_cfg.num_bins,
+                       loss_cfg.lut_superpixel_size)
     gimg = torch.randn(b, h, w, device="cuda")
     out = {}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    # Vote (rows 3 and 4): sorted half as the path votes it, then the same
-    # events in random order.
-    perm = torch.argsort(torch.rand(b, npos, device="cuda"), dim=1)
-    unsorted = (torch.gather(coords, 1, perm[..., None].expand(-1, -1, 2)),
-                torch.gather(weight, 1, perm))
-    nnz = int((weight != 0).sum())
-    fwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4
-    bwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4 + b * npos * 8
+    # Vote (rows 3 and 4): the sorted half as the path votes it, the same
+    # events in random order, skewed, and with a wide flow (vote_cases);
+    # the backward on the first two.
     for name in ("iwe_vote_fwd", "iwe_vote_bwd"):
         out[name] = {}
-    for label, (c, v) in (("sorted", (coords, weight)), ("unsorted", unsorted)):
+    for label, (c, v) in cases.items():
+        nnz = int((v != 0).sum())
+        fwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4
+        bwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4 + b * npos * 8
         k_out = iv.iwe_vote_fwd(c, v, h, w)
         p_out = iv.iwe_vote_fwd_plain(c, v, h, w)
         e_f = check_close(f"iwe_vote_fwd {label} B={b} M={npos} {h}x{w}",
                           k_out, p_out, TOL_VOTE_FWD)
+        del k_out, p_out
+        share = vote_band_share(iv, c, v, h, w)
+        print(f"[flow-kernel-vs-plain] iwe_vote_fwd {label}: {share:.4f} of "
+              f"the live taps through the shared-memory band (plain twin)")
+        card_ms = time_ms(torch, lambda: iv.iwe_vote_fwd(c, v, h, w), flush,
+                          card=True)
+        print(f"[flow-timing] iwe_vote_fwd {label}: card time "
+              f"{card_ms * 1e3:.1f} us")
+        if label in ("skewed", "wide"):
+            k_ms = time_ms(torch, lambda: iv.iwe_vote_fwd(c, v, h, w), flush)
+            print(f"[flow-timing] iwe_vote_fwd {label}: kernel="
+                  f"{k_ms * 1e3:.1f} us bound="
+                  f"{fwd_bytes / H100_BYTES_PER_S * 1e6:.1f} us")
+            out["iwe_vote_fwd"].update({
+                f"{label}_ms": k_ms, f"{label}_card_ms": card_ms,
+                f"{label}_bound_ms": fwd_bytes / H100_BYTES_PER_S * 1e3,
+                f"{label}_max_abs_err": e_f, f"{label}_band_share": share})
+            continue
         k_dc, _ = iv.iwe_vote_bwd(c, v, gimg, h, w, need_dweight=False)
         p_dc, _ = iv.iwe_vote_bwd_plain(c, v, gimg, h, w, need_dweight=False)
         e_b = check_close(f"iwe_vote_bwd {label}", k_dc, p_dc, TOL_VOTE_BWD)
-        del k_out, p_out, k_dc, p_dc
+        del k_dc, p_dc
         # The library yardstick: one index_put_(accumulate=True) of the
         # precomputed corner indices and values.
         y1, x1, corners = iv._taps(c, h, w)
@@ -821,16 +899,16 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
                                           need_dweight=False),
             None, flush, bwd_bytes)
         del idx, val, img
+        f.update(card_ms=card_ms, band_share=share)
         for name, nums, err in (("iwe_vote_fwd", f, e_f),
                                 ("iwe_vote_bwd", bw, e_b)):
             if label == "sorted":
                 out[name].update(nums, max_abs_err=err)
             else:
-                out[name].update(unsorted_ms=nums["ms"],
-                                 unsorted_plain_ms=nums["plain_ms"],
-                                 unsorted_library_ms=nums["library_ms"],
+                out[name].update({f"unsorted_{k}": x for k, x in nums.items()
+                                  if k not in ("bound_ms", "bound_by")},
                                  unsorted_max_abs_err=err)
-    del coords, weight, unsorted, perm, gimg
+    del cases, gimg
     torch.cuda.empty_cache()
 
     # LUT gather and its segment sum (row 6), the path's indices.
@@ -2600,7 +2678,13 @@ FLOW_SOURCES = {
 }
 FLOW_WORK = {
     "iwe_vote_fwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted "
-                    "(unsorted_*: the same events in random order)",
+                    "(unsorted_*: the same events in random order; "
+                    "skewed_*: half the live events of each sample in one "
+                    "16 x 64 region, 1% on one pixel, sorted again; wide_*: "
+                    "the sorted events with a flow of up to 48 px; "
+                    "*band_share: the live taps voted through the "
+                    "shared-memory band; *card_ms: the card's time alone, "
+                    "the host's enqueue covered by a spin)",
     "iwe_vote_bwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted, "
                     "no weight gradient (unsorted_*: random order)",
     "lut_gather_fwd": "B=14, M=2^20, LUT [1800, 160, 2] f32",

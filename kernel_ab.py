@@ -1,15 +1,15 @@
-"""Time two kernels of two or more checkouts of the PyTorch port on one card,
-under the same timers, in one call: the corr-window lookup (kernel row 1)
-and the voxel vote (kernel row 8).
+"""Time kernels of two or more checkouts of the PyTorch port on one card,
+under the same timers, in one call: the corr-window lookup (kernel row 1),
+the voxel vote (kernel row 8) and the IWE vote's forward (rows 3 and 4).
 
     python3 kernel_ab.py parent=path/to/other/checkout change=. \
         --order parent,change,change,parent
 
 Each run is a process of its own that imports `motionpriorcmax_tpu_torch`
-from its checkout (and builds that checkout's `corr_window.cu` and
-`voxel_vote.cu` there), makes the same inputs from a seed on the card, holds
-every kernel result against its plain version, and times, with the L2
-flushed before each call:
+from its checkout (and builds that checkout's `corr_window.cu`,
+`voxel_vote.cu` and `iwe_vote.cu` there), makes the same inputs from a seed
+on the card, holds every kernel result against its plain version, and
+times, with the L2 flushed before each call:
 
   lookup       one refinement iteration of the B=8 EVIMO2 traj-val path:
                `CorrPyramidLookup` over the four pyramid levels, f32, as
@@ -20,7 +20,16 @@ flushed before each call:
                polarity half stable-sorted by 4 x 4-pixel cell (a stand-in
                for the loader's LUT-cell sort), "unsorted": the same events
                in random order, "skewed": half the live events of each
-               sample in one 16 x 64 region, 1% on one pixel.
+               sample in one 16 x 64 region, 1% on one pixel;
+  iwe_vote     `iwe_vote_fwd` on one polarity half of chip_smoke.py's
+               phase 8 batch (B=14, M=2^19, 480 x 640, the loader's
+               LUT-cell sort), through `chip_smoke.vote_cases`: "sorted",
+               "unsorted" (random order), "skewed" (a hot pixel and a hot
+               16 x 64 region, sorted again) and "wide" (the flow x 6, up
+               to 48 px); its error is relative to max(1, max |plain|),
+               and "band_share" is the share of live taps that the
+               forward's plain twin votes through its shared-memory band
+               (null for a checkout without the twin).
 
 Two timers, each the median of 20 calls between two CUDA events:
   ms       the events recorded around the call as `chip_smoke.py`'s `ms`
@@ -55,7 +64,8 @@ import sys
 import time
 
 from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS, W,
-                        level_inputs, nvidia_smi_line)
+                        level_inputs, nvidia_smi_line, vote_band_share,
+                        vote_batch, vote_cases)
 
 VOX_B, VOX_M, VOX_LIVE, VOX_NB, VOX_H, VOX_W = 14, 1 << 20, 1_000_000, 15, 480, 640
 CELL = 4
@@ -173,6 +183,28 @@ def run_vote(torch, flush):
     return out
 
 
+def run_iwe_vote(torch, flush):
+    from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
+
+    batch, loss_cfg = vote_batch()
+    h, w = loss_cfg.image_shape
+    cases = vote_cases(torch, batch, h, w, loss_cfg.num_bins,
+                       loss_cfg.lut_superpixel_size)
+    out = {}
+    for label, (c, v) in cases.items():
+        got = iv.iwe_vote_fwd(c, v, h, w)
+        want = iv.iwe_vote_fwd_plain(c, v, h, w)
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        del got, want
+        share = (vote_band_share(iv, c, v, h, w)
+                 if hasattr(iv, "iwe_vote_banded_plain") else None)
+        ms, card_ms, host_us = timers(
+            torch, lambda: iv.iwe_vote_fwd(c, v, h, w), flush)
+        out[label] = {"ms": ms, "card_ms": card_ms, "host_us": host_us,
+                      "max_rel_err": err, "band_share": share}
+    return out
+
+
 def staging() -> None:
     """Level 1 staged by cp.async (the port's kernel) and by TMA."""
     import ctypes
@@ -245,12 +277,14 @@ def worker(label: str, tree: str) -> None:
 
     if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
         raise SystemExit(f"kernel_ab: imported {pkg.__file__}, not {tree}'s")
-    for name in ("corr_window", "voxel_vote"):
+    for name in ("corr_window", "voxel_vote", "iwe_vote"):
         build_library(name)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    res = {"run": label, "tree": tree, "lookup": run_lookup(torch, flush)}
-    torch.cuda.empty_cache()
-    res["voxel_vote"] = run_vote(torch, flush)
+    res = {"run": label, "tree": tree}
+    for name, run in (("lookup", run_lookup), ("voxel_vote", run_vote),
+                      ("iwe_vote", run_iwe_vote)):
+        res[name] = run(torch, flush)
+        torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
 
 
@@ -287,17 +321,20 @@ def main() -> int:
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results.append(json.loads(line))
-    print("run        lookup ms / card_ms / host_us (launches)  level-1 ms / "
-          "card_ms | vote ms / card_ms / host_us: sorted, unsorted, skewed")
+    def cells(res, keys):
+        return "  ".join(f"{res[k]['ms'] * 1e3:.1f}/{res[k]['card_ms'] * 1e3:.1f}"
+                         f"/{res[k]['host_us']:.0f}" for k in keys)
+
+    print("run        lookup (launches), level 1 | voxel vote sorted, "
+          "unsorted, skewed | iwe_vote_fwd sorted, unsorted, skewed, wide "
+          "(each: ms / card_ms in us / host_us)")
     for r in results:
-        lk, vv = r["lookup"], r["voxel_vote"]
-        vote = "  ".join(
-            f"{vv[k]['ms'] * 1e3:.1f}/{vv[k]['card_ms'] * 1e3:.1f}/"
-            f"{vv[k]['host_us']:.0f}" for k in ("sorted", "unsorted", "skewed"))
-        print(f"{r['run']:<10} {lk['ms'] * 1e3:.1f} / {lk['card_ms'] * 1e3:.1f}"
-              f" / {lk['host_us']:.0f} ({lk['launches_per_iteration']})   "
-              f"{lk['level1_ms'] * 1e3:.1f} / {lk['level1_card_ms'] * 1e3:.1f}"
-              f" | {vote}")
+        lk = r["lookup"]
+        print(f"{r['run']:<10} {lk['ms'] * 1e3:.1f}/{lk['card_ms'] * 1e3:.1f}/"
+              f"{lk['host_us']:.0f} ({lk['launches_per_iteration']}), "
+              f"{lk['level1_ms'] * 1e3:.1f}/{lk['level1_card_ms'] * 1e3:.1f} | "
+              + cells(r["voxel_vote"], ("sorted", "unsorted", "skewed")) + " | "
+              + cells(r["iwe_vote"], ("sorted", "unsorted", "skewed", "wide")))
     return 0
 
 

@@ -12,6 +12,9 @@ and the design.
   iwe_vote(coords, weight, height, width)  the differentiable vote
   iwe_vote_fwd / iwe_vote_bwd              the two launches (counted)
   iwe_vote_fwd_plain / iwe_vote_bwd_plain  the same functions in PyTorch
+  iwe_vote_banded_plain                    the forward kernel's partition of
+                                           the taps (chunks, row band, direct
+                                           taps) in PyTorch, with its counts
 
 On a CUDA tensor `iwe_vote_fwd` / `iwe_vote_bwd` launch their kernel or
 raise; on a CPU tensor they run the plain version.  `.launches` on each
@@ -86,6 +89,94 @@ def iwe_vote_fwd_plain(coords: torch.Tensor, weight: torch.Tensor,
     return out.reshape(bsz, height, width)
 
 
+# The forward kernel's partition (csrc/iwe_vote.cu): chunks of VOTE_CHUNK
+# consecutive events of one batch row, a shared-memory band of
+# vote_band_rows(H, W) image rows, used when it holds at least BAND_SHARE
+# of the chunk's live taps and at least one per MIN_PIXELS_PER_TAP pixels
+# of the rows it flushes.
+VOTE_CHUNK = 4096
+BAND_BYTES = 100 * 1024
+BAND_SHARE = (3, 4)
+MIN_PIXELS_PER_TAP = 8
+
+
+def vote_band_rows(height: int, width: int) -> int:
+    """Rows of the forward kernel's shared-memory band: as many as
+    BAND_BYTES holds (two blocks per SM), at most the image's.  A row takes
+    the kernel's band_stride(width) floats: width + 3 rounded up to 4, and
+    4 more when that is a multiple of 32."""
+    stride = (width + 6) // 4 * 4
+    stride += 4 if stride % 32 == 0 else 0
+    return min(height, BAND_BYTES // (4 * stride))
+
+
+def iwe_vote_banded_plain(coords: torch.Tensor, weight: torch.Tensor,
+                          height: int, width: int, chunk: int = VOTE_CHUNK,
+                          band_rows: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, int, int]:
+    """The forward kernel's partition in PyTorch: (vote [B, H, W], taps
+    voted through the band, taps voted directly).
+
+    Each chunk of `chunk` consecutive events of a batch row finds its live
+    tap rows (weight != 0, tap in the image) lo..hi, places a band of
+    `band_rows` rows at rs = clamp(lo // 8 * 8, 0, max(H - band_rows, 0))
+    and counts the live taps in rows [rs, top], top = min(hi, rs +
+    band_rows - 1); if they are at least BAND_SHARE of the chunk's live
+    taps and one per MIN_PIXELS_PER_TAP pixels of rows [lo, top], those
+    taps go to the band and the chunk's others directly, else all go
+    directly.  The image is the sum of both parts.
+    """
+    _check(coords, weight)
+    if band_rows is None:
+        band_rows = vote_band_rows(height, width)
+    bsz, m = weight.shape
+    pad = -m % chunk
+    c = torch.nn.functional.pad(coords, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(weight, (0, pad))
+    y1, x1, corners = _taps(c, height, width)
+    live = v != 0
+    big = 1 << 30
+
+    def per_chunk(t):                       # [B, M'] -> [B, chunks, chunk]
+        return t.reshape(bsz, -1, chunk)
+
+    def per_event(t):                       # [B, chunks] -> [B, M']
+        return t[..., None].expand(-1, -1, chunk).reshape(bsz, -1)
+
+    def chunk_sum(ts):
+        return sum(per_chunk(t).sum(-1) for t in ts)
+
+    taps = [mask & live for _, _, _, _, mask in corners]
+    rows = [y1 + dy for dy, _, _, _, _ in corners]
+    lo = torch.stack([per_chunk(torch.where(t, r, big)).amin(-1)
+                      for t, r in zip(taps, rows)]).amin(0)
+    hi = torch.stack([per_chunk(torch.where(t, r, -1)).amax(-1)
+                      for t, r in zip(taps, rows)]).amax(0)
+    rs = torch.clamp(lo // 8 * 8, 0, max(height - band_rows, 0))
+    top = torch.minimum(hi, rs + band_rows - 1)
+    in_rows = [t & (r >= per_event(rs)) & (r <= per_event(top))
+               for t, r in zip(taps, rows)]
+    n_rows, n_live = chunk_sum(in_rows), chunk_sum(taps)
+    num, den = BAND_SHARE
+    use = ((hi >= 0) & (den * n_rows >= num * n_live)
+           & (MIN_PIXELS_PER_TAP * n_rows >= (top - lo + 1) * width)
+           & (band_rows > 0))
+    out = torch.zeros(2, bsz * height * width, dtype=torch.float32,
+                      device=coords.device)
+    n_band = n_direct = 0
+    for (dy, dx, wy, wx, _), t, r in zip(corners, taps, in_rows):
+        idx = _flat_index(y1, x1, dy, dx, t, height, width)
+        val = torch.where(t, wy * wx * v, torch.zeros_like(v))
+        to_band = r & per_event(use)
+        out[0].index_add_(0, idx.reshape(-1),
+                          torch.where(to_band, val, 0.0).reshape(-1))
+        out[1].index_add_(0, idx.reshape(-1),
+                          torch.where(to_band, 0.0, val).reshape(-1))
+        n_band += int(to_band.sum())
+        n_direct += int((t & ~to_band).sum())
+    return out.sum(0).reshape(bsz, height, width), n_band, n_direct
+
+
 def iwe_vote_bwd_plain(coords: torch.Tensor, weight: torch.Tensor,
                        grad: torch.Tensor, height: int, width: int,
                        need_dweight: bool = True
@@ -118,9 +209,12 @@ def _kernels():
 
     lib = load_library("iwe_vote")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.iwe_vote_fwd_chunk.restype = i
+    if lib.iwe_vote_fwd_chunk() != VOTE_CHUNK:
+        raise RuntimeError("csrc/iwe_vote.cu's chunk differs from VOTE_CHUNK")
     fwd = lib.iwe_vote_fwd
     fwd.restype = i
-    fwd.argtypes = [p, p, p, i, i, ll, ll, i, i, p]
+    fwd.argtypes = [p, p, p, i, i, ll, ll, i, i, i, p]
     bwd = lib.iwe_vote_bwd
     bwd.restype = i
     bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, i, i, p]
@@ -143,7 +237,9 @@ def iwe_vote_fwd(coords: torch.Tensor, weight: torch.Tensor, height: int,
     """[B, M, 2] (y, x) f32, [B, M] f32 -> [B, H, W] f32 vote.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises.
+    on the current stream or raises.  The kernel takes a band of
+    vote_band_rows(height, width) rows per chunk (iwe_vote_banded_plain
+    is its partition).
     """
     _check(coords, weight)
     if coords.device.type != "cuda":
@@ -156,7 +252,8 @@ def iwe_vote_fwd(coords: torch.Tensor, weight: torch.Tensor, height: int,
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream(coords.device).cuda_stream
         err = fwd(coords.data_ptr(), weight.data_ptr(), out.data_ptr(), bsz, m,
-                  cstride, wstride, height, width, stream)
+                  cstride, wstride, height, width,
+                  vote_band_rows(height, width), stream)
     if err != 0:
         raise RuntimeError(f"iwe_vote_fwd kernel failed: cudaError_t {err}")
     iwe_vote_fwd.launches += 1

@@ -150,6 +150,102 @@ def test_vote_plain_matches_pallas_interpret(sort):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-2 * np.abs(b).max())
 
 
+# The forward kernel's partition (iwe_vote_banded_plain), case by case.
+# Every case is ragged (M not a multiple of the chunk) unless it says
+# otherwise, and has zero-weight padding at the end of each row.
+BAND_CASES = ("sorted", "unsorted", "wide", "stragglers", "edges", "half",
+              "padding_row", "hot", "w57")
+
+
+def band_case(name, h=H, w=W, b=3, m=3001, chunk=256, seed=20):
+    """(coords, weight, h, w, halves) of a band case: halves are the
+    (start, stop) event ranges voted one by one (polarity halves)."""
+    rng = np.random.default_rng(seed + BAND_CASES.index(name))
+    w = 57 if name == "w57" else w
+    m = 24 * chunk if name == "half" else m
+    y = rng.uniform(-2, h + 1, (b, m))
+    x = rng.uniform(-2, w + 1, (b, m))
+    halves = [(0, m)]
+    if name == "hot":                   # 24 events per row on one pixel,
+        y[:, :24], x[:, :24] = h / 2 + 0.5, w / 2 + 0.5   # adjacent once sorted
+    if name == "half":                  # two sorted halves of 12 chunks each
+        halves = [(0, m // 2), (m // 2, m)]
+        y = np.concatenate([np.sort(y[:, :m // 2]), np.sort(y[:, m // 2:])], 1)
+    elif name != "unsorted":
+        y = np.sort(y, axis=1)
+    if name == "wide":                  # a flow of up to 3 bands' height
+        y = y + 3 * (chunk * h / m) * np.sin(x / 3)
+    if name == "edges":                 # the top and bottom rows and beyond
+        y[:, ::16] = rng.choice([-1.0, -0.5, 0.0, 0.25, h - 1.5, h - 1.0,
+                                 h - 0.5, float(h)], (b, (m + 15) // 16))
+    coords = np.stack([y, x], -1).astype(np.float32)
+    wgt = rng.uniform(0.2, 2.0, (b, m)).astype(np.float32)
+    if name == "stragglers":            # 5% far outside, 5% anywhere inside
+        far = rng.random((b, m)) < 0.1
+        coords[far] = rng.choice([-1e9, 1e9], (int(far.sum()), 2))
+        near = far & (rng.random((b, m)) < 0.5)
+        coords[near] = rng.uniform(0, 1, (int(near.sum()), 2)) * (h - 1, w - 1)
+    if name == "padding_row":
+        wgt[1] = 0.0
+    wgt[:, -40:] = 0.0
+    return coords, wgt, h, w, halves
+
+
+def live_taps(c, v, h, w):
+    """Taps of live events (weight != 0) inside the image."""
+    _, _, corners = iv._taps(c, h, w)
+    return sum(int((mask & (v != 0)).sum()) for *_, mask in corners)
+
+
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_banded_plain_matches_plain_and_jax(name):
+    # atol 1e-5, the file's: the band and direct parts are the same f32
+    # corner values, summed in another order.  Every live in-image tap is
+    # counted once, band or direct.
+    coords, wgt, h, w, halves = band_case(name)
+    ct, vt = torch.from_numpy(coords), torch.from_numpy(wgt)
+    for lo, hi in halves:
+        c, v = ct[:, lo:hi], vt[:, lo:hi]          # batch-strided views
+        got, n_band, n_direct = iv.iwe_vote_banded_plain(c, v, h, w,
+                                                         chunk=256,
+                                                         band_rows=8)
+        want = iv.iwe_vote_fwd_plain(c, v, h, w)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5)
+        jx = np.asarray(jax_direct(jnp.asarray(coords[:, lo:hi]),
+                                   jnp.asarray(wgt[:, lo:hi]), h, w))
+        np.testing.assert_allclose(got.numpy(), jx, rtol=0, atol=1e-5)
+        assert n_band + n_direct == live_taps(c, v, h, w)
+        # Sorted chunks use their band; a straggler inside the image takes
+        # the direct path beside it; the unsorted and wide chunks' bands
+        # hold too few of their taps.
+        assert (n_band == 0) == (name in ("unsorted", "wide")), n_band
+        assert n_direct > 0 or name not in ("stragglers", "unsorted", "wide")
+
+
+def test_band_share_sorted_vs_unsorted():
+    # Sorted chunks cover a few rows and fit their band; unsorted ones
+    # spread over the image and fail the kernel's count test.
+    h = 160
+    coords, wgt, _, w, _ = band_case("sorted", h=h, chunk=128)
+    ct, vt = torch.from_numpy(coords), torch.from_numpy(wgt)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(3001))
+    shares = []
+    for c, v in ((ct, vt), (ct[:, perm], vt[:, perm])):
+        _, n_band, n_direct = iv.iwe_vote_banded_plain(c, v, h, w, chunk=128,
+                                                       band_rows=16)
+        shares.append(n_band / (n_band + n_direct))
+    assert shares[0] > 0.9 and shares[1] < 0.05, shares
+
+
+def test_band_rows_fit_two_blocks_per_sm():
+    # 39 rows of 644 f32 (640 + 4 of padding) at the flow-training width;
+    # small images whole.
+    assert iv.vote_band_rows(480, 640) == 39
+    assert iv.vote_band_rows(40, 57) == 40
+    assert iv.vote_band_rows(480, 640) * 644 * 4 <= iv.BAND_BYTES
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """The CUDA kernels against their plain versions on the card.
@@ -158,7 +254,9 @@ def test_kernels_match_plain_on_card():
     on every run.  Backward rtol 1e-6 + atol 1e-6: the same f32
     expressions and no atomics, but nvcc contracts the sums of products
     into fused multiply-adds, which round once instead of twice (a few
-    ulps of values up to ~10)."""
+    ulps of values up to ~10).  The forward also on the band cases at the
+    flow-training size, where a band of 40 rows holds a sorted chunk's
+    taps and not an unsorted or wide one's (W = 57 at H = 600: 449 rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for sort in (True, False):
@@ -178,3 +276,19 @@ def test_kernels_match_plain_on_card():
         dc_p, dw_p = iv.iwe_vote_bwd_plain(c, v, gt, H, W)
         torch.testing.assert_close(dc, dc_p, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(dw, dw_p, rtol=1e-6, atol=1e-6)
+    for name in BAND_CASES:
+        coords, wgt, h, w, halves = band_case(
+            name, h=600 if name == "w57" else 480, w=640, m=60011,
+            chunk=iv.VOTE_CHUNK)
+        ct = torch.from_numpy(coords).cuda()
+        vt = torch.from_numpy(wgt).cuda()
+        for lo, hi in halves:
+            c, v = ct[:, lo:hi], vt[:, lo:hi]
+            out = iv.iwe_vote_fwd(c, v, h, w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, iv.iwe_vote_fwd_plain(c, v, h, w),
+                                       rtol=0, atol=1e-5, msg=name)
+            _, n_band, n_direct = iv.iwe_vote_banded_plain(c, v, h, w)
+            assert n_band + n_direct == live_taps(c, v, h, w)
+            if name in ("sorted", "unsorted"):     # both paths ran
+                assert (n_band > 0) == (name == "sorted")
