@@ -26,7 +26,8 @@ times, with the L2 flushed before each call:
                LUT-cell sort), through `chip_smoke.vote_cases`: "sorted",
                "unsorted" (random order), "skewed" (a hot pixel and a hot
                16 x 64 region, sorted again) and "wide" (the flow x 6, up
-               to 48 px); its error is relative to max(1, max |plain|),
+               to 48 px); its error is relative to max(1, max |plain|)
+               and fails the run above chip_smoke.py's TOL_VOTE_FWD,
                and "band_share" is the share of live taps that the
                forward's plain twin votes through its shared-memory band
                (null for a checkout without the twin).
@@ -63,9 +64,9 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS, W,
-                        level_inputs, nvidia_smi_line, vote_band_share,
-                        vote_batch, vote_cases)
+from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS,
+                        TOL_VOTE_FWD, W, level_inputs, nvidia_smi_line,
+                        vote_band_share, vote_batch, vote_cases)
 
 VOX_B, VOX_M, VOX_LIVE, VOX_NB, VOX_H, VOX_W = 14, 1 << 20, 1_000_000, 15, 480, 640
 CELL = 4
@@ -196,6 +197,9 @@ def run_iwe_vote(torch, flush):
         want = iv.iwe_vote_fwd_plain(c, v, h, w)
         err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
         del got, want
+        if not err <= TOL_VOTE_FWD:
+            raise SystemExit(f"kernel_ab: iwe_vote_fwd {label} disagrees with "
+                             f"plain: {err:.3e} > {TOL_VOTE_FWD:g}")
         share = (vote_band_share(iv, c, v, h, w)
                  if hasattr(iv, "iwe_vote_banded_plain") else None)
         ms, card_ms, host_us = timers(
