@@ -40,13 +40,16 @@ Phases, one or more lines each; any failure exits non-zero:
      forward also on a skewed batch (a hot pixel, sorted again) and with a
      6x wider flow, with the share of taps that the forward's plain twin
      votes through its shared-memory band; the LUT gather (LUT [14, 1800,
-     160, 2], 2^20 events) and its sorted segment sum (S=2); 5% of the
-     warped coordinates far outside the image
+     160, 2], 2^20 events) and its sorted segment sum (S=2) on the
+     path's batch, on a skewed one sorted again and at the traj-train
+     shape (B=6, 2^18 padding rows per half), two calls giving the same
+     bits; 5% of the warped coordinates far outside the image
  10. timing of each kernel (CUDA events, L2 flushed): kernel, bytes bound
      at 3.35 TB/s, plain version, and one PyTorch call as the yardstick
      (index_put_ accumulate for the vote, advanced indexing for the
      gather, index_add_ for the segment sum; none for the vote backward);
-     the vote forward's card time alone on its four inputs
+     the card time alone of the vote forward on its four inputs and of
+     the segment sum on its three
  11. training: train_flow (the CLI's loop) at full width with seeded
      weights on 1 warm-up + 3 timed steps and one val pass with GT flow,
      checkpoint to a temporary directory: step ms, events/s, peak memory,
@@ -113,12 +116,13 @@ Phases, one or more lines each; any failure exits non-zero:
   without the LUT-cell sort, the DataLoader's default):
  25. kernel vs plain: the any-order segment sum (kernel row 5, the LUT
      gather's backward) at the step's shapes (B=14, M=2^20, LUT [1800,
-     160, 2], ~4.6% padding with zero cotangent), at the traj-train shapes
-     ([6, 3936, 128, 2], 2^19 events per sample) and with every cotangent
-     on 8 cells per sample
- 26. its timing (CUDA events, L2 flushed): kernel, bytes bound, plain
-     version, torch.gather's backward (scatter_add_); with the padding
-     rows' cotangent nonzero, and with no padding
+     160, 2], ~4.6% padding with zero cotangent), on a skewed batch in
+     time order, at the traj-train shapes ([6, 3936, 128, 2], 2^19 events
+     per sample) and with every cotangent on 8 cells per sample
+ 26. its timing (CUDA events, L2 flushed; also the card's time alone):
+     kernel, bytes bound, plain version, torch.gather's backward
+     (scatter_add_); the skewed batch; with the padding rows' cotangent
+     nonzero, and with no padding
  27. training: train_flow on the unsorted batches: launches per step 1
      segment sum, 2 + 2 vote (row 4), 1 voxel vote, 1 + 1 softmax and no
      LUT gather; TF32 off in the UNet's forward and backward; the step
@@ -739,10 +743,11 @@ def vote_inputs(torch, events, npos, seed, flow_scale=1.0):
     return coords[:, :npos], weight[:, :npos]       # batch-strided views
 
 
-def vote_batch(seed=7):
-    """Phase 8's cell-sorted host batch without its voxel grids (the
-    vote's inputs for kernel_ab.py): 14 samples of FLOW_EVENTS events at
-    dsec.yaml's shapes, collated with the loader's LUT-cell sort."""
+def vote_batch(seed=7, cell_sort=True):
+    """Phase 8's host batch without its voxel grids (the inputs of
+    kernel_ab.py): 14 samples of FLOW_EVENTS events at dsec.yaml's
+    shapes, collated with the loader's LUT-cell sort or, without
+    `cell_sort`, in time order as the unsorted path collates them."""
     from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
 
     cfg, loss_cfg = flow_configs(DSEC_CONFIG)
@@ -750,10 +755,10 @@ def vote_batch(seed=7):
     samples = flow_samples(seed, DSEC_CONFIG["data"]["batch_size"],
                            FLOW_EVENTS, h, w, cfg.num_bins, gt=True,
                            voxel=False)
-    return collate_fixed_capacity(
-        samples, FLOW_CAPACITY, polarity_aware=True,
-        lut_cell_sort_params=(loss_cfg.image_shape, loss_cfg.num_bins,
-                              loss_cfg.lut_superpixel_size)), loss_cfg
+    params = (loss_cfg.image_shape, loss_cfg.num_bins,
+              loss_cfg.lut_superpixel_size) if cell_sort else None
+    return collate_fixed_capacity(samples, FLOW_CAPACITY, polarity_aware=True,
+                                  lut_cell_sort_params=params), loss_cfg
 
 
 def vote_cases(torch, batch, h, w, nb, superpixel):
@@ -833,7 +838,6 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
     h, w = cfg.image_shape
     npos = batch["num_pos_events"]
     events = torch.from_numpy(batch["events"]).cuda()
-    ends = torch.from_numpy(batch["lut_cell_ends"]).cuda()
     b, m, _ = events.shape
     cases = vote_cases(torch, batch, h, w, loss_cfg.num_bins,
                        loss_cfg.lut_superpixel_size)
@@ -911,39 +915,71 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
     del cases, gimg
     torch.cuda.empty_cache()
 
-    # LUT gather and its segment sum (row 6), the path's indices.
+    # LUT gather (row 6), the path's indices.
     hq, wq = h // loss_cfg.lut_superpixel_size, w // loss_cfg.lut_superpixel_size
     nb = loss_cfg.num_bins
     lut = torch.randn(b, hq * nb, wq, 2, device="cuda")
     rows, cols = lut_indices(loss_cfg, events, nb, sorted_layout=True)
-    # The path's cotangent is zero on padding rows (their vote weight is 0);
-    # they still form the long run of cell 0 that the kernel must walk.
-    gev = torch.randn(b, m, 2, device="cuda") * events[..., 5:6]
     cells = hq * nb * wq
     e_g = check_close(f"lut_gather_fwd B={b} M={m} LUT {tuple(lut.shape[1:])}",
                       lg.lut_gather_fwd(lut, rows, cols),
                       lg.lut_gather_plain(lut, rows, cols), 0.0)
-    e_s = check_close(f"lut_segsum_bwd S={ends.shape[1] // cells}",
-                      lg.lut_segsum_bwd(gev, ends, cells),
-                      lg.lut_segsum_plain(gev, ends, cells), TOL_SEGSUM)
     flat = (torch.arange(b, device="cuda")[:, None] * cells
             + rows.long() * wq + cols.long()).reshape(-1)
     lut_flat = lut.reshape(-1, 2)
-    dl = torch.zeros(b * cells, 2, device="cuda")
-    gflat = gev.reshape(-1, 2)
     out["lut_gather_fwd"] = time_kernel(
         torch, "lut_gather_fwd", lambda: lg.lut_gather_fwd(lut, rows, cols),
         lambda: lg.lut_gather_plain(lut, rows, cols),
         lambda: lut_flat[flat], flush,
         b * m * 8 + b * m * 2 * 4 + lut.numel() * 4)
     out["lut_gather_fwd"]["max_abs_err"] = e_g
-    out["lut_segsum_bwd"] = time_kernel(
-        torch, "lut_segsum_bwd", lambda: lg.lut_segsum_bwd(gev, ends, cells),
-        lambda: lg.lut_segsum_plain(gev, ends, cells),
-        lambda: dl.zero_().index_add_(0, flat, gflat), flush,
-        gev.numel() * 4 + ends.numel() * 4 + b * cells * 2 * 4)
-    out["lut_segsum_bwd"]["max_abs_err"] = e_s
-    del events, ends, lut, rows, cols, gev, flat, dl, flush
+    del lut, lut_flat, rows, cols
+
+    # Its sorted segment sum (row 6) on the path's batch, a skewed one and
+    # at the traj-train shape (segsum_cases); two calls must give the same
+    # bits.
+    out["lut_segsum_bwd"] = {"deterministic": True}
+    for label, (gev, ends, n_cells) in segsum_cases(torch, batch,
+                                                    loss_cfg).items():
+        segs = ends.shape[1] // n_cells
+        got = lg.lut_segsum_bwd(gev, ends, n_cells)
+        again = lg.lut_segsum_bwd(gev, ends, n_cells)
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"lut_segsum_bwd {label}: two calls gave different bits")
+        err = check_close(
+            f"lut_segsum_bwd {label} B={gev.shape[0]} M={gev.shape[1]} "
+            f"S={segs} x {n_cells} cells (identical bits in two calls)",
+            got, lg.lut_segsum_plain(gev, ends, n_cells), TOL_SEGSUM)
+        del got, again
+        nbytes = (gev.numel() * 4 + ends.numel() * 4
+                  + gev.shape[0] * n_cells * 2 * 4)
+        card_ms = time_ms(torch, lambda: lg.lut_segsum_bwd(gev, ends, n_cells),
+                          flush, card=True)
+        print(f"[flow-timing] lut_segsum_bwd {label}: card time "
+              f"{card_ms * 1e3:.1f} us")
+        if label == "sorted":
+            dl = torch.zeros(b * cells, 2, device="cuda")
+            gflat = gev.reshape(-1, 2)
+            nums = time_kernel(
+                torch, "lut_segsum_bwd",
+                lambda: lg.lut_segsum_bwd(gev, ends, n_cells),
+                lambda: lg.lut_segsum_plain(gev, ends, n_cells),
+                lambda: dl.zero_().index_add_(0, flat, gflat), flush, nbytes)
+            nums.update(max_abs_err=err, card_ms=card_ms)
+            del dl, gflat
+        else:
+            k_ms = time_ms(torch, lambda: lg.lut_segsum_bwd(gev, ends,
+                                                            n_cells), flush)
+            bound = nbytes / H100_BYTES_PER_S * 1e3
+            print(f"[flow-timing] lut_segsum_bwd {label}: kernel="
+                  f"{k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
+                  f"({nbytes / 1e6:.1f} MB, bytes)")
+            nums = {f"{label}_ms": k_ms, f"{label}_bound_ms": bound,
+                    f"{label}_max_abs_err": err,
+                    f"{label}_card_ms": card_ms}
+        out["lut_segsum_bwd"].update(nums)
+        del gev, ends
+    del events, flat, flush
     torch.cuda.empty_cache()
     return out
 
@@ -1183,6 +1219,69 @@ def skewed_events(events, h, w, seed):
         ev[i, hot, 0] = y0 + 7.5
         ev[i, hot, 1] = x0 + 31.25
     return ev
+
+
+def sorted_segsum_case(torch, b, half, live, cells, seed):
+    """Cotangents [B, 2 * half, 2] and cell_ends [B, 2 * cells] of a
+    polarity-packed, cell-sorted batch made on the card in the loader's
+    layout (data/host_ops.py::lut_cell_sort): per half, `live` events on
+    uniform random cells, and half - live padding rows in cell 0 after
+    that cell's live events, with zero cotangent."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(b, 2 * half, 2, device=dev, generator=gen)
+    pos = torch.arange(half, device=dev)[None]
+    ends = []
+    for s in range(2):
+        keys = torch.randint(0, cells, (b, live), device=dev, generator=gen)
+        counts = torch.zeros(b, cells, dtype=torch.long, device=dev)
+        counts.scatter_add_(1, keys, torch.ones_like(keys))
+        first = counts[:, :1].clone()
+        counts[:, 0] += half - live
+        ends.append(s * half + torch.cumsum(counts, 1))
+        pad = (pos >= first) & (pos < first + half - live)
+        g[:, s * half:(s + 1) * half][pad] = 0.0
+    return g, torch.cat(ends, 1).int()
+
+
+def segsum_cases(torch, batch, loss_cfg):
+    """Row 6's inputs, {label: (g [B, M, 2], cell_ends, cells)}:
+      sorted  phase 8's cell-sorted batch, normal cotangents, zero on the
+              padding rows (their vote weight is 0): the path's; the
+              padding forms the long run of cell 0 of each half (~24k)
+      skewed  the same samples through skewed_events, sorted again by the
+              loader's LUT-cell sort: runs of hundreds of events
+      traj    the traj-train shape: B=6, 2^19 live events per sample in
+              capacity 2^20, LUT [3936, 128]: 2^18 padding rows per half
+              (sorted_segsum_case)"""
+    from motionpriorcmax_tpu_torch.data.host_ops import lut_cell_sort
+
+    h, w = loss_cfg.image_shape
+    nb, sp = loss_cfg.num_bins, loss_cfg.lut_superpixel_size
+    cells = nb * (h // sp) * (w // sp)
+    npos = batch["num_pos_events"]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def cotangents(ev):
+        valid = torch.from_numpy(ev[..., 5]).cuda()
+        return (torch.randn(*valid.shape, 2, device="cuda", generator=gen)
+                * valid[..., None])
+
+    skew = skewed_events(batch["events"], h, w, 12)
+    skew_ends = np.empty_like(batch["lut_cell_ends"])
+    for i in range(len(skew)):
+        skew[i], skew_ends[i] = lut_cell_sort(skew[i], (h, w), nb, sp,
+                                              num_pos_events=npos)
+    tr, tx = TRAJ_LUT
+    traj = sorted_segsum_case(torch, TRAIN_BATCH, TRAIN_CAPACITY // 2,
+                              TRAIN_EVENTS // 2, tr * tx, 22)
+    return {
+        "sorted": (cotangents(batch["events"]),
+                   torch.from_numpy(batch["lut_cell_ends"]).cuda(), cells),
+        "skewed": (cotangents(skew), torch.from_numpy(skew_ends).cuda(),
+                   cells),
+        "traj": (*traj, tr * tx),
+    }
 
 
 def edge_events(b, m, h, w, ty, tx, seed):
@@ -2239,28 +2338,68 @@ def segment_sum_inputs(torch, rows, cols, valid, seed):
     return gev * valid[..., None]
 
 
+def segment_sum_cases(torch, unsorted_batch, loss_cfg):
+    """Row 5's inputs, {label: (rows, cols, g [B, M, 2], R, X)}:
+      path    phase 8's samples collated without the sort (time order per
+              half), cotangents zero on the padding rows (segment_sum_inputs)
+      skewed  the same events through skewed_events, still in time order
+      traj    the traj-train shape: B=6, 2^19 uniform events per sample in
+              capacity 2^20 (the other half padding), LUT [3936, 128]"""
+    from motionpriorcmax_tpu_torch.losses.focus import lut_indices
+
+    nb, sp = loss_cfg.num_bins, loss_cfg.lut_superpixel_size
+    h, w = loss_cfg.image_shape
+    r, x = nb * (h // sp), w // sp
+    out = {}
+    for label, ev, seed in (
+            ("path", unsorted_batch["events"], 31),
+            ("skewed", skewed_events(unsorted_batch["events"], h, w, 12), 34)):
+        events = torch.from_numpy(ev).cuda()
+        rows, cols = lut_indices(loss_cfg, events, nb, sorted_layout=False)
+        gev = segment_sum_inputs(torch, rows, cols, events[..., 5], seed)
+        out[label] = (rows, cols, gev, r, x)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    tb, tr, tx = TRAIN_BATCH, *TRAJ_LUT
+    t_rows = torch.randint(0, tr, (tb, TRAIN_CAPACITY), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    t_cols = torch.randint(0, tx, (tb, TRAIN_CAPACITY), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    t_valid = (torch.arange(TRAIN_CAPACITY, device="cuda")
+               % (TRAIN_CAPACITY // 2) < TRAIN_EVENTS // 2).float()
+    t_valid = t_valid[None].expand(tb, -1)
+    t_rows = torch.where(t_valid > 0, t_rows, 0).int()
+    t_cols = torch.where(t_valid > 0, t_cols, 0).int()
+    out["traj"] = (t_rows, t_cols,
+                   segment_sum_inputs(torch, t_rows, t_cols, t_valid, 33),
+                   tr, tx)
+    return out
+
+
+def segment_sum_bound_ms(g, rr, xx):
+    """Row 5's bytes bound: each event's C cotangents, the indices of the
+    events with a nonzero one, and the grid written once."""
+    live = int((g != 0).any(-1).sum())
+    nbytes = g.numel() * 4 + live * 8 + g.shape[0] * rr * xx * g.shape[2] * 4
+    return nbytes / H100_BYTES_PER_S * 1e3, nbytes
+
+
 def phase_segment_sum(torch, loss_cfg, unsorted_batch):
     """Row 5 against its plain version at the unsorted flow-train shapes
-    (B=14, M=2^20, LUT [1800, 160], C=2), at the traj-train shapes (B=6,
-    2^19 events per sample in capacity 2^20, LUT [3936, 128]) and with
-    every cotangent on 8 cells; then timed against its bytes bound, the
-    plain version, torch.gather's own backward (scatter_add_), and with
-    the padding rows' cotangent nonzero or no padding at all.  Returns the
+    (B=14, M=2^20, LUT [1800, 160], C=2), on a skewed batch in time order,
+    at the traj-train shapes (B=6, 2^19 events per sample in capacity
+    2^20, LUT [3936, 128]) and with every cotangent on 8 cells; then timed
+    against its bytes bound (ms and the card's time alone), the plain
+    version, torch.gather's own backward (scatter_add_), and with the
+    padding rows' cotangent nonzero or no padding at all.  Returns the
     numbers for the JSON line."""
-    from motionpriorcmax_tpu_torch.losses.focus import lut_indices
     from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
 
-    events = torch.from_numpy(unsorted_batch["events"]).cuda()
-    b, m, _ = events.shape
-    nb = loss_cfg.num_bins
-    s = loss_cfg.lut_superpixel_size
-    h, w = loss_cfg.image_shape
-    r, x = nb * (h // s), w // s
-    rows, cols = lut_indices(loss_cfg, events, nb, sorted_layout=False)
-    valid = events[..., 5]
-    gev = segment_sum_inputs(torch, rows, cols, valid, 31)
-    pad = float((valid == 0).float().mean())
-    del events
+    cases = segment_sum_cases(torch, unsorted_batch, loss_cfg)
+    rows, cols, gev, r, x = cases["path"]
+    b, m, _ = gev.shape
+    valid = (gev != 0).any(-1).float()
+    pad = 1.0 - float(torch.from_numpy(
+        unsorted_batch["events"][..., 5]).mean())
 
     def check(label, rws, cls, g, rr, xx, tol):
         """(max |diff|, max |diff| / max |plain|); fails above tol."""
@@ -2276,8 +2415,12 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
             fail(f"grid_segment_sum disagrees with plain: {label}")
         return err, rel
 
-    err = check(f"flow-train B={b} M={m} LUT [{r}, {x}] C=2, {pad:.3f} "
-                "padding", rows, cols, gev, r, x, TOL_SEGMENT_SUM)
+    errs = {"path": check(f"flow-train B={b} M={m} LUT [{r}, {x}] C=2, "
+                          f"{pad:.3f} padding", rows, cols, gev, r, x,
+                          TOL_SEGMENT_SUM),
+            "skewed": check("skewed (half the live events in one 16 x 64 "
+                            "region, 1% on one pixel), time order",
+                            *cases["skewed"], TOL_SEGMENT_SUM)}
     gen = torch.Generator(device="cuda").manual_seed(32)
     few_r = torch.randint(0, 2, rows.shape, device="cuda", generator=gen,
                           dtype=torch.int32)
@@ -2287,31 +2430,12 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
     err_few = check("every cotangent on 8 cells per sample", few_r, few_c,
                     few_g, r, x, TOL_SEGMENT_SUM_FEW)
     del few_r, few_c, few_g
-
-    # traj-train: 2^19 uniform events per sample, the other half padding.
-    tb, tr, tx = TRAIN_BATCH, *TRAJ_LUT
-    t_rows = torch.randint(0, tr, (tb, TRAIN_CAPACITY), device="cuda",
-                           generator=gen, dtype=torch.int32)
-    t_cols = torch.randint(0, tx, (tb, TRAIN_CAPACITY), device="cuda",
-                           generator=gen, dtype=torch.int32)
-    t_valid = (torch.arange(TRAIN_CAPACITY, device="cuda")
-               % (TRAIN_CAPACITY // 2) < TRAIN_EVENTS // 2).float()
-    t_valid = t_valid[None].expand(tb, -1)
-    t_rows = torch.where(t_valid > 0, t_rows, 0).int()
-    t_cols = torch.where(t_valid > 0, t_cols, 0).int()
-    t_g = segment_sum_inputs(torch, t_rows, t_cols, t_valid, 33)
-    err_traj = check(f"traj-train B={tb} M={TRAIN_CAPACITY} "
-                     f"({TRAIN_EVENTS} valid) LUT [{tr}, {tx}] C=2",
-                     t_rows, t_cols, t_g, tr, tx, TOL_SEGMENT_SUM)
+    t_rows, t_cols, t_g, tr, tx = cases["traj"]
+    errs["traj"] = check(f"traj-train B={t_g.shape[0]} M={TRAIN_CAPACITY} "
+                         f"({TRAIN_EVENTS} valid) LUT [{tr}, {tx}] C=2",
+                         *cases["traj"], TOL_SEGMENT_SUM)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-
-    def bound_ms(g, rr, xx):
-        # Each event's C cotangents, the indices of the events with a
-        # nonzero one, and the grid written once.
-        live = int((g != 0).any(-1).sum())
-        nbytes = g.numel() * 4 + live * 8 + g.shape[0] * rr * xx * 2 * 4
-        return nbytes / H100_BYTES_PER_S * 1e3, nbytes
 
     def gather_bwd(rws, cls, g, rr, xx):
         """torch.gather's backward: scatter_add_ into a zeroed grid."""
@@ -2320,26 +2444,41 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
         out = torch.zeros(g.shape[0], rr * xx, 2, device="cuda")
         return lambda: out.zero_().scatter_add_(1, flat, g)
 
-    def timed(label, rws, cls, g, rr, xx):
-        k_ms = time_ms(torch, lambda: ss.grid_segment_sum(rws, cls, g, rr,
-                                                          xx), flush)
-        p_ms = time_ms(torch, lambda: ss.segment_sum_plain(rws, cls, g, rr,
+    def timed(label, rws, cls, g, rr, xx, plain=True):
+        def kernel():
+            return ss.grid_segment_sum(rws, cls, g, rr, xx)
+
+        k_ms = time_ms(torch, kernel, flush)
+        card_ms = time_ms(torch, kernel, flush, card=True)
+        bnd, nbytes = segment_sum_bound_ms(g, rr, xx)
+        nums = {"ms": k_ms, "card_ms": card_ms, "bound_ms": bnd}
+        line = (f"[segsum-timing] {label}: kernel={k_ms * 1e3:.1f} us "
+                f"(card {card_ms * 1e3:.1f} us) bound={bnd * 1e3:.1f} us "
+                f"({nbytes / 1e6:.1f} MB, bytes)")
+        if plain:
+            nums["plain_ms"] = time_ms(
+                torch, lambda: ss.segment_sum_plain(rws, cls, g, rr, xx),
+                flush, reps=5, warmup=1)
+            nums["library_ms"] = time_ms(torch, gather_bwd(rws, cls, g, rr,
                                                            xx),
-                       flush, reps=5, warmup=1)
-        l_ms = time_ms(torch, gather_bwd(rws, cls, g, rr, xx), flush,
-                       reps=5, warmup=1)
-        bnd, nbytes = bound_ms(g, rr, xx)
-        print(f"[segsum-timing] {label}: kernel={k_ms * 1e3:.1f} us "
-              f"bound={bnd * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, bytes) "
-              f"plain={p_ms * 1e3:.1f} us library (torch.gather's backward, "
-              f"scatter_add_)={l_ms * 1e3:.1f} us")
-        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
-                "bound_by": "bytes", "library_ms": l_ms}
+                                         flush, reps=5, warmup=1)
+            line += (f" plain={nums['plain_ms'] * 1e3:.1f} us library "
+                     f"(torch.gather's backward, scatter_add_)="
+                     f"{nums['library_ms'] * 1e3:.1f} us")
+        print(line)
+        return nums
 
     out = timed("flow-train, the path's batch", rows, cols, gev, r, x)
-    out["max_abs_err"], out["max_rel_err"] = err
+    out["bound_by"] = "bytes"
+    out["max_abs_err"], out["max_rel_err"] = errs["path"]
     out["few_cells_max_abs_err"], out["few_cells_max_rel_err"] = err_few
-    out["traj_max_abs_err"], out["traj_max_rel_err"] = err_traj
+    for label in ("skewed", "traj"):
+        nums = timed(f"{label} shapes" if label == "traj" else
+                     "skewed batch, time order", *cases[label],
+                     plain=label == "traj")
+        out.update({f"{label}_{k}": v for k, v in nums.items()})
+        out[f"{label}_max_abs_err"], out[f"{label}_max_rel_err"] = \
+            errs[label]
     # The same batch with the padding rows' cotangent nonzero (what the
     # zero skip saves: ~48k same-address atomics per sample), and with no
     # padding at all (the padding rows drawn as valid events).
@@ -2356,9 +2495,8 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
           f"with a nonzero cotangent "
           f"{out['padding_cotangent_nonzero_ms'] * 1e3:.1f} us; no padding "
           f"(every row a valid event) {out['no_padding_ms'] * 1e3:.1f} us")
-    traj = timed("traj-train shapes", t_rows, t_cols, t_g, tr, tx)
-    out.update({f"traj_{k}": v for k, v in traj.items() if k != "bound_by"})
-    del rows, cols, gev, g_padnz, full_r, full_c, t_rows, t_cols, t_g, flush
+    del cases, rows, cols, gev, g_padnz, full_r, full_c, t_rows, t_cols, t_g
+    del flush
     torch.cuda.empty_cache()
     return out
 
@@ -2688,8 +2826,14 @@ FLOW_WORK = {
     "iwe_vote_bwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted, "
                     "no weight gradient (unsorted_*: random order)",
     "lut_gather_fwd": "B=14, M=2^20, LUT [1800, 160, 2] f32",
-    "lut_segsum_bwd": "B=14, M=2^20, S=2 x 288,000 cells, C=2; replaces "
-                      "the boundary gather of ops/events.py:459-464",
+    "lut_segsum_bwd": "B=14, M=2^20, S=2 x 288,000 cells, C=2, the path's "
+                      "cell-sorted batch (skewed_*: half the live events "
+                      "of each sample in one 16 x 64 region, 1% on one "
+                      "pixel, sorted again; traj_*: B=6, 2^19 live events "
+                      "per sample in capacity 2^20, S=2 x 503,808 cells; "
+                      "*card_ms: the card's time alone; deterministic: two "
+                      "calls gave the same bits); replaces the boundary "
+                      "gather of ops/events.py:459-464",
     "softmax_interp_fwd": "G=210, Q=N=19,200, C=2, per-bin band, f32 "
                           "(library: scaled_dot_product_attention, dense, "
                           "no band)",
@@ -2702,8 +2846,11 @@ FLOW_WORK = {
                   "alone, the host's enqueue covered by a spin)",
     "grid_segment_sum": "B=14, M=2^20 unsorted events (padding skipped), "
                         "LUT [1800, 160, 2] f32 (library: torch.gather's "
-                        "backward, scatter_add_; traj_*: [6, 3936, 128, 2], "
-                        "2^19 events per sample)",
+                        "backward, scatter_add_; skewed_*: half the live "
+                        "events of each sample in one 16 x 64 region, 1% "
+                        "on one pixel, time order; traj_*: [6, 3936, 128, "
+                        "2], 2^19 events per sample; *card_ms: the card's "
+                        "time alone)",
 }
 
 

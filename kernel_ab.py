@@ -7,9 +7,10 @@ the voxel vote (kernel row 8) and the IWE vote's forward (rows 3 and 4).
 
 Each run is a process of its own that imports `motionpriorcmax_tpu_torch`
 from its checkout (and builds that checkout's `corr_window.cu`,
-`voxel_vote.cu` and `iwe_vote.cu` there), makes the same inputs from a seed
-on the card, holds every kernel result against its plain version, and
-times, with the L2 flushed before each call:
+`voxel_vote.cu`, `iwe_vote.cu`, `lut_gather.cu` and `segment_sum.cu`
+there), makes the same inputs from a seed on the card, holds every kernel
+result against its plain version, and times, with the L2 flushed before
+each call, these sections:
 
   lookup       one refinement iteration of the B=8 EVIMO2 traj-val path:
                `CorrPyramidLookup` over the four pyramid levels, f32, as
@@ -21,6 +22,17 @@ times, with the L2 flushed before each call:
                for the loader's LUT-cell sort), "unsorted": the same events
                in random order, "skewed": half the live events of each
                sample in one 16 x 64 region, 1% on one pixel;
+  segsum       `lut_segsum_bwd` (kernel row 6, the LUT gather's sorted
+               backward) on chip_smoke.segsum_cases: "sorted" (phase 8's
+               cell-sorted batch, the flow path's), "skewed" (its samples
+               through skewed_events, sorted again by the loader's
+               LUT-cell sort) and "traj" (the traj-train shape, 2^18
+               padding rows per half); fails the run above TOL_SEGSUM or
+               when two calls differ in a bit;
+  segment_sum  `grid_segment_sum` (row 5, the any-order backward) on
+               chip_smoke.segment_sum_cases: "path" (phase 8's samples
+               collated unsorted), "skewed" (in time order) and "traj";
+               fails the run above TOL_SEGMENT_SUM;
   iwe_vote     `iwe_vote_fwd` on one polarity half of chip_smoke.py's
                phase 8 batch (B=14, M=2^19, 480 x 640, the loader's
                LUT-cell sort), through `chip_smoke.vote_cases`: "sorted",
@@ -64,9 +76,13 @@ import subprocess
 import sys
 import time
 
+import functools
+
 from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS,
-                        TOL_VOTE_FWD, W, level_inputs, nvidia_smi_line,
-                        vote_band_share, vote_batch, vote_cases)
+                        TOL_SEGMENT_SUM, TOL_SEGSUM, TOL_VOTE_FWD, W,
+                        level_inputs, nvidia_smi_line, segment_sum_cases,
+                        segsum_cases, vote_band_share, vote_batch,
+                        vote_cases)
 
 VOX_B, VOX_M, VOX_LIVE, VOX_NB, VOX_H, VOX_W = 14, 1 << 20, 1_000_000, 15, 480, 640
 CELL = 4
@@ -184,10 +200,59 @@ def run_vote(torch, flush):
     return out
 
 
+# Phase 8's batch, cell-sorted or not, made once per run.
+host_batch = functools.lru_cache(maxsize=None)(vote_batch)
+
+
+def run_segsum(torch, flush):
+    from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
+
+    batch, loss_cfg = host_batch()
+    out = {}
+    for label, (g, ends, cells) in segsum_cases(torch, batch,
+                                                loss_cfg).items():
+        got = lg.lut_segsum_bwd(g, ends, cells)
+        same = torch.equal(got.view(torch.int32),
+                           lg.lut_segsum_bwd(g, ends, cells).view(torch.int32))
+        want = lg.lut_segsum_plain(g, ends, cells)
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        del got, want
+        if not err <= TOL_SEGSUM or not same:
+            raise SystemExit(f"kernel_ab: lut_segsum_bwd {label}: error "
+                             f"{err:.3e} (bound {TOL_SEGSUM:g}), two calls "
+                             f"{'agree' if same else 'differ'} in bits")
+        ms, card_ms, host_us = timers(
+            torch, lambda: lg.lut_segsum_bwd(g, ends, cells), flush)
+        out[label] = {"ms": ms, "card_ms": card_ms, "host_us": host_us,
+                      "max_rel_err": err}
+    return out
+
+
+def run_segment_sum(torch, flush):
+    from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
+
+    batch, loss_cfg = host_batch(cell_sort=False)
+    out = {}
+    for label, (rows, cols, g, r, x) in segment_sum_cases(
+            torch, batch, loss_cfg).items():
+        got = ss.grid_segment_sum(rows, cols, g, r, x)
+        want = ss.segment_sum_plain(rows, cols, g, r, x)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        del got, want
+        if not err <= TOL_SEGMENT_SUM:
+            raise SystemExit(f"kernel_ab: grid_segment_sum {label} disagrees "
+                             f"with plain: {err:.3e} > {TOL_SEGMENT_SUM:g}")
+        ms, card_ms, host_us = timers(
+            torch, lambda: ss.grid_segment_sum(rows, cols, g, r, x), flush)
+        out[label] = {"ms": ms, "card_ms": card_ms, "host_us": host_us,
+                      "max_rel_err": err}
+    return out
+
+
 def run_iwe_vote(torch, flush):
     from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
 
-    batch, loss_cfg = vote_batch()
+    batch, loss_cfg = host_batch()
     h, w = loss_cfg.image_shape
     cases = vote_cases(torch, batch, h, w, loss_cfg.num_bins,
                        loss_cfg.lut_superpixel_size)
@@ -269,6 +334,16 @@ def staging() -> None:
     print(json.dumps(res), flush=True)
 
 
+SECTIONS = {"lookup": run_lookup, "voxel_vote": run_vote,
+            "iwe_vote": run_iwe_vote, "segsum": run_segsum,
+            "segment_sum": run_segment_sum}
+# The cases of each section, in the order of the table.
+CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
+         "iwe_vote": ("sorted", "unsorted", "skewed", "wide"),
+         "segsum": ("sorted", "skewed", "traj"),
+         "segment_sum": ("path", "skewed", "traj")}
+
+
 def worker(label: str, tree: str) -> None:
     tree = os.path.abspath(tree)
     sys.path[0] = tree                      # this checkout's package only
@@ -281,12 +356,12 @@ def worker(label: str, tree: str) -> None:
 
     if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
         raise SystemExit(f"kernel_ab: imported {pkg.__file__}, not {tree}'s")
-    for name in ("corr_window", "voxel_vote", "iwe_vote"):
+    for name in ("corr_window", "voxel_vote", "iwe_vote", "lut_gather",
+                 "segment_sum"):
         build_library(name)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     res = {"run": label, "tree": tree}
-    for name, run in (("lookup", run_lookup), ("voxel_vote", run_vote),
-                      ("iwe_vote", run_iwe_vote)):
+    for name, run in SECTIONS.items():
         res[name] = run(torch, flush)
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
@@ -325,20 +400,19 @@ def main() -> int:
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results.append(json.loads(line))
-    def cells(res, keys):
-        return "  ".join(f"{res[k]['ms'] * 1e3:.1f}/{res[k]['card_ms'] * 1e3:.1f}"
-                         f"/{res[k]['host_us']:.0f}" for k in keys)
+    def cell(c):
+        return f"{c['ms'] * 1e3:.1f}/{c['card_ms'] * 1e3:.1f}/{c['host_us']:.0f}"
 
-    print("run        lookup (launches), level 1 | voxel vote sorted, "
-          "unsorted, skewed | iwe_vote_fwd sorted, unsorted, skewed, wide "
-          "(each: ms / card_ms in us / host_us)")
+    print("each: ms / card_ms in us / host_us")
     for r in results:
         lk = r["lookup"]
-        print(f"{r['run']:<10} {lk['ms'] * 1e3:.1f}/{lk['card_ms'] * 1e3:.1f}/"
-              f"{lk['host_us']:.0f} ({lk['launches_per_iteration']}), "
-              f"{lk['level1_ms'] * 1e3:.1f}/{lk['level1_card_ms'] * 1e3:.1f} | "
-              + cells(r["voxel_vote"], ("sorted", "unsorted", "skewed")) + " | "
-              + cells(r["iwe_vote"], ("sorted", "unsorted", "skewed", "wide")))
+        parts = [f"lookup {cell(lk)} ({lk['launches_per_iteration']} "
+                 f"launches), level 1 {lk['level1_ms'] * 1e3:.1f}/"
+                 f"{lk['level1_card_ms'] * 1e3:.1f}"]
+        parts += [f"{name} " + "  ".join(f"{k} {cell(r[name][k])}"
+                                         for k in keys)
+                  for name, keys in CASES.items()]
+        print(f"{r['run']:<10} " + " | ".join(parts))
     return 0
 
 

@@ -11,15 +11,20 @@ cumsum and a boundary gather.  The CUDA source is
 and the design.
 
   lut_gather(lut, rows, cols, cell_ends)  the differentiable lookup
-  lut_gather_fwd / lut_segsum_bwd         the two launches (counted)
+  lut_gather_fwd / lut_segsum_bwd         the launching calls (counted)
   lut_gather_plain / lut_segsum_plain     the same functions in PyTorch
+  lut_segsum_tiled_plain                  the segment sum as the kernel
+                                          partitions it (tiles, pieces)
 
-On a CUDA tensor the launch functions run their kernel or raise; on a CPU
-tensor they run the plain version.  `.launches` counts kernel launches.
+On a CUDA tensor the launching calls run their kernels or raise; on a CPU
+tensor they run the plain version.  `.launches` counts calls that launched:
+`lut_segsum_bwd` makes two device launches per call (pieces, then tiles)
+and counts one.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 
@@ -27,6 +32,12 @@ import torch
 
 # Channel counts the segment-sum kernel is built for (2 per reference time).
 SEGSUM_CHANNELS = (1, 2, 4, 6, 8)
+# The segment-sum kernel's partition (csrc/lut_gather.cu: kTile, kPiece,
+# kWindowFloats): cells per block, events per piece, floats per
+# shared-memory window.
+TILE_CELLS = 512
+PIECE_EVENTS = 4096
+WINDOW_FLOATS = 2048
 
 
 def _check_gather(lut, rows, cols):
@@ -95,9 +106,110 @@ def lut_segsum_plain(g: torch.Tensor, cell_ends: torch.Tensor,
     return segs.reshape(b, -1, cells, c).sum(dim=1).float()
 
 
+def _piece_ceil(a: int, piece: int) -> int:
+    return -(-a // piece) * piece
+
+
+def _skip_carried(e, pos: int, hi: int, piece: int) -> int:
+    """csrc/lut_gather.cu::skip_carried: pos moved past the events that the
+    pieces carry (from the first multiple of `piece` of their run on), or
+    `hi` when no first-part event is left in [pos, hi)."""
+    while pos < hi:
+        i = bisect.bisect_right(e, pos) - 1        # the run holding pos
+        if pos < _piece_ceil(e[i], piece):
+            return pos
+        nxt = e[i + 1] if i + 1 < len(e) else hi
+        pos = nxt if nxt > pos else hi
+    return hi
+
+
+def _windows(tile_ends, cap: int, piece: int):
+    """csrc/lut_gather.cu::next_window: the block's walk over its tile,
+    (segment, first event, end) of windows of at most `cap` events."""
+    s, pos = 0, tile_ends[0][0]
+    while s < len(tile_ends):
+        e = tile_ends[s]
+        hi = max(e[-1], e[0])
+        pos = _skip_carried(e, max(pos, e[0]), hi, piece)
+        if pos < hi:
+            end = min(pos + cap, hi)
+            yield s, pos, end
+            pos = end
+            continue
+        s += 1
+        if s < len(tile_ends):
+            pos = tile_ends[s][0]
+
+
+def lut_segsum_tiled_plain(g: torch.Tensor, cell_ends: torch.Tensor,
+                           cells: int, tile: int = TILE_CELLS,
+                           piece: int = PIECE_EVENTS, window: int = 0):
+    """lut_segsum_plain computed as the kernel partitions the work (plain):
+    returns (d lut [B, cells, C] f32, coverage int64 [B, M]).
+
+    The events of a sample are cut at every multiple of `piece`; a piece's
+    carry is the sum of its events that belong to the run holding its first
+    event.  A tile of `tile` consecutive cells walks each segment's span in
+    windows of at most `window` events (default: the kernel's for C),
+    skipping the carried events, and adds each run's first part (its events
+    before its first multiple of `piece`) window by window, then the
+    carries of the pieces the run heads, in piece order.  Partial sums are
+    taken in float64 and rounded to f32 once, then combined in f32 in the
+    kernel's order.  The coverage counts how many times each event was
+    added: 1 up to the last end, 0 after.
+    """
+    _check_segsum(g, cell_ends, cells)
+    b, m, c = g.shape
+    cap = window or (WINDOW_FLOATS - 8) // c
+    segs = cell_ends.shape[1] // cells
+    csum = torch.cat([torch.zeros(b, 1, c, dtype=torch.float64),
+                      torch.cumsum(g.detach().cpu().double(), dim=1)], dim=1)
+    ends = cell_ends.long().clamp(0, m).cpu().tolist()
+    dlut = torch.zeros(b, cells, c, dtype=torch.float32)
+    marks = torch.zeros(b, m + 1, dtype=torch.int64)
+    pieces = -(-m // piece)
+    for bi in range(b):
+        eb = ends[bi]
+        carry = []
+        for q in range(pieces):
+            x = q * piece
+            j = bisect.bisect_right(eb, x)              # the head run
+            stop = max(min(eb[j], x + piece, m), x) if j < len(eb) else x
+            carry.append((csum[bi, stop] - csum[bi, x]).float())
+            marks[bi, x] += 1
+            marks[bi, stop] -= 1
+        for j0 in range(0, cells, tile):
+            tile_ends = [[0 if s == 0 and j0 - 1 + i < 0
+                          else eb[s * cells + min(j0 - 1 + i, cells - 1)]
+                          for i in range(tile + 1)] for s in range(segs)]
+            acc = torch.zeros(tile, c, dtype=torch.float32)
+            for s, w0, w1 in _windows(tile_ends, cap, piece):
+                e = torch.tensor(tile_ends[s])
+                a = e[:-1]
+                first = torch.minimum(torch.maximum(e[1:], a),
+                                      -(-a // piece) * piece)
+                lo = a.clamp(min=w0)
+                hi = first.clamp(max=w1)
+                live = hi > lo
+                part = (csum[bi, hi.clamp(min=0)] - csum[bi, lo]).float()
+                acc += torch.where(live[:, None], part, 0.0)
+                marks[bi].index_add_(0, lo[live], torch.ones_like(lo[live]))
+                marks[bi].index_add_(0, hi[live], -torch.ones_like(hi[live]))
+            for i in range(min(tile, cells - j0)):
+                for s in range(segs):
+                    a = tile_ends[s][i]
+                    stop = max(tile_ends[s][i + 1], a)
+                    for q in range(_piece_ceil(a, piece) // piece,
+                                   min(_piece_ceil(stop, piece) // piece,
+                                       pieces)):
+                        acc[i] += carry[q]
+            dlut[bi, j0:j0 + tile] = acc[:min(tile, cells - j0)]
+    return dlut.to(g.device), torch.cumsum(marks, dim=1)[:, :m]
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The built library's two C entry points, argument types declared."""
+    """The built library's C entry points, argument types declared."""
     from .build import load_library
 
     lib = load_library("lut_gather")
@@ -107,8 +219,11 @@ def _kernels():
     fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
     bwd = lib.lut_segsum_bwd
     bwd.restype = i
-    bwd.argtypes = [p, p, p, i, i, i, i, i, p]
-    return fwd, bwd
+    bwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    carry = lib.lut_segsum_carry_floats
+    carry.restype = ctypes.c_longlong
+    carry.argtypes = [i, i, i]
+    return fwd, bwd, carry
 
 
 def lut_gather_fwd(lut: torch.Tensor, rows: torch.Tensor,
@@ -125,7 +240,7 @@ def lut_gather_fwd(lut: torch.Tensor, rows: torch.Tensor,
     m = rows.shape[1]
     lut, rows, cols = lut.contiguous(), rows.contiguous(), cols.contiguous()
     out = torch.empty(b, m, c, dtype=torch.float32, device=lut.device)
-    fwd, _ = _kernels()
+    fwd, _, _ = _kernels()
     with torch.cuda.device(lut.device):
         stream = torch.cuda.current_stream(lut.device).cuda_stream
         err = fwd(lut.data_ptr(), rows.data_ptr(), cols.data_ptr(),
@@ -140,8 +255,8 @@ def lut_segsum_bwd(g: torch.Tensor, cell_ends: torch.Tensor,
                    cells: int) -> torch.Tensor:
     """[B, M, C] f32 cotangents, [B, S * cells] int32 -> [B, cells, C] f32.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernels
+    (pieces, then tiles) on the current stream or raises.
     """
     _check_segsum(g, cell_ends, cells)
     if g.device.type != "cuda":
@@ -152,12 +267,16 @@ def lut_segsum_bwd(g: torch.Tensor, cell_ends: torch.Tensor,
                          f"got {c}")
     segs = cell_ends.shape[1] // cells
     g, cell_ends = g.contiguous(), cell_ends.contiguous()
+    if g.data_ptr() % 16:                    # its windows copy 16 bytes
+        g = g.clone()
     dlut = torch.empty(b, cells, c, dtype=torch.float32, device=g.device)
-    _, bwd = _kernels()
+    _, bwd, carry_floats = _kernels()
+    carry = torch.empty(carry_floats(b, m, c), dtype=torch.float32,
+                        device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = bwd(g.data_ptr(), cell_ends.data_ptr(), dlut.data_ptr(), b,
-                  cells, segs, m, c, stream)
+        err = bwd(g.data_ptr(), cell_ends.data_ptr(), carry.data_ptr(),
+                  dlut.data_ptr(), b, cells, segs, m, c, stream)
     if err != 0:
         raise RuntimeError(f"lut_segsum_bwd kernel failed: cudaError_t {err}")
     lut_segsum_bwd.launches += 1

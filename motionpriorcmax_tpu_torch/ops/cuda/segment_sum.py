@@ -86,7 +86,11 @@ def grid_segment_sum(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     b, m, c = g.shape
     if c not in CHANNELS:
         raise ValueError(f"the kernel sums {CHANNELS} channels, got {c}")
-    rows, cols, g = rows.contiguous(), cols.contiguous(), g.contiguous()
+    # The kernel loads 16 bytes at a time: a view off that alignment is
+    # copied.
+    rows, cols, g = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (rows.contiguous(), cols.contiguous(),
+                               g.contiguous()))
     out = torch.zeros(b, num_rows, num_cols, c, dtype=torch.float32,
                       device=g.device)
     fn = _kernel()

@@ -155,3 +155,46 @@ def test_kernel_matches_plain_on_card():
         assert ss.grid_segment_sum.launches == before + 2
         torch.testing.assert_close(gr.grad, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m,pad", [(4, 70001, 0.1), (6, 70003, 0.0),
+                                     (8, 70002, 0.3), (2, 70001, 0.5)])
+def test_kernel_vector_reductions_on_card(c, m, pad):
+    """Each event's C cotangents go out as float2 / float4 reductions
+    (C = 6: three float2s) and 4 events per thread are loaded 16 bytes at
+    a time: every C, a ragged tail (M not a multiple of 4) and padding
+    that starts mid-group, against the plain version (as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    grid, rows, cols, g = make_inputs(40 + c, b=3, r=90, x=40, c=c, m=m,
+                                      pad=pad)
+    rows[1, m // 2:m // 2 + 3] = 0           # three events on row 0,
+    g[1, m // 2 + 1] = 0.0                   # one of them dead: a mixed group
+    rt, ct, gt = (torch.from_numpy(a).cuda() for a in (rows, cols, g))
+    got = ss.grid_segment_sum(rt, ct, gt, 90, 40)
+    want = ss.segment_sum_plain(rt, ct, gt, 90, 40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_hot_cell_on_card():
+    """Half the events of each sample on one cell (same-address
+    reductions), the rest spread; the hot cell's sum of ~35k terms differs
+    from the plain version's by its summation order alone: 1e-4 of the
+    largest |value| (chip_smoke.py's TOL_SEGMENT_SUM_FEW)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    grid, rows, cols, g = make_inputs(50, b=3, r=90, x=40, c=2, m=70001,
+                                      pad=0.05)
+    rng = np.random.default_rng(51)
+    hot = rng.random(rows.shape) < 0.5
+    rows[hot], cols[hot] = 17, 23
+    rt, ct, gt = (torch.from_numpy(a).cuda() for a in (rows, cols, g))
+    got = ss.grid_segment_sum(rt, ct, gt, 90, 40)
+    want = ss.segment_sum_plain(rt, ct, gt, 90, 40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
