@@ -65,17 +65,25 @@ Phases, one or more lines each; any failure exits non-zero:
  14. kernels vs plain at the path's shapes: the softmax interpolation
      forward and backward (G=210 groups, Q=N=19,200, per-bin band rows,
      trajectories moved up to 60 px, 1% far outside the image; the plain
-     versions on 4 of the groups, kernel rows 7) and the voxel vote of the
+     versions on 4 of the groups, kernel rows 7; the backward's bits the
+     same in two calls; the same at the traj-train softmax step's shapes;
+     the pairs scanned, needed (a nonzero weight) and computed, counted by
+     the kernels and equal to their PyTorch twin's count; one query
+     against points at squared distances around the cut, f32 and bf16, no
+     nonzero weight within 1 of it, none dropped, each equal to plain) and
+     the voxel vote of the
      14 x 2^20 cell-sorted events, of the same events unsorted and skewed
      (half the live events of a sample in one 16 x 64 region, 1% on one
      pixel), and of events on tile edges and corners and at the clamp
      limits (row 8)
- 15. timing (CUDA events, L2 flushed): kernel, bound (operations for row 7:
-     exp2 at the SFU rate and f32 instructions, from nvidia-smi's maximum
-     SM clock; bytes for row 8), plain version, and one PyTorch call
-     (scaled_dot_product_attention, dense and without band, for the
-     forward, with its difference to the kernel; none for the backward;
-     index_add_ of the eight taps for the vote); the skewed vote's time
+ 15. timing (CUDA events, L2 flushed): kernel, bound (row 7: the larger
+     of exp2 at the SFU rate and f32 instructions over the needed pairs,
+     from nvidia-smi's maximum SM clock, and bytes; bytes for row 8), plain
+     version, and one PyTorch call (scaled_dot_product_attention, dense
+     and without band, for the forward, with its difference to the kernel;
+     none for the backward; index_add_ of the eight taps for the vote); the
+     skewed vote's time; row 7 also at the traj-train softmax step's
+     shapes (G=246, Q=N=12,288, C=4, per-group dynamic band)
  16. training: train_flow as in phase 11: launches per step 1 + 1 softmax,
      1 voxel vote and the 6 of phase 11; in the val pass 1 softmax forward
      and 1 voxel vote; the step losses against the recorded ones
@@ -103,7 +111,8 @@ Phases, one or more lines each; any failure exits non-zero:
      finite loss that moves, context BatchNorm statistics that move, TF32
      off in the forward and the backward, finite validation metrics
  22. the same loop with loss.knn_method softmax (+ 1 + 1 softmax
-     launches), and with the supervised step (gamma 0.8, 5 GT steps)
+     launches; the first three steps' losses against the recorded ones),
+     and with the supervised step (gamma 0.8, 5 GT steps)
  23. where the time goes, at each of the three points: CUDA events
      around the encoders, volume, pyramid, lookups, update blocks,
      upsample, the loss, backward (and the backward kernel in it) and
@@ -650,6 +659,14 @@ TOL_TRAIN_LOSS = 1e-4              # card vs CPU, relative
 # unsorted batch gave the same to 1e-6): a voxel grid summed in another
 # order moves them by far less than this bound.
 SOFTMAX_STEP_LOSSES = (0.502358, 0.494246, 0.476255, 0.495910)
+# The traj-train softmax steps' first three losses (phase 22), as the port
+# printed them in four runs of this script on an H100 (NVIDIA H100 80GB
+# HBM3, 700 W), the same to six digits in each.  Later steps are not held:
+# by step 3 the runs spread by 1.3e-4 and by step 4 by 1.4e-4 (relative),
+# as the exact-KNN traj-train steps spread too, from sums in a
+# run-dependent order elsewhere in the step (the IWE vote's float atomics,
+# for one) that the optimizer carries on.
+TRAJ_SOFTMAX_STEP_LOSSES = (0.559594, 0.549575, 0.529107)
 TOL_STEP_LOSS = 1e-4               # relative
 TOL_TRAIN_GRAD = 1e-4              # card vs CPU, of each tensor's largest
 TOL_TRAIN_BN = 1e-4                # card vs CPU, of each buffer's largest
@@ -993,11 +1010,13 @@ def sm_clock_hz() -> float:
     return float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
-def softmax_inputs(torch, loss_cfg, b, seed):
-    """The interpolation's operands at the step's shapes: the LUT grid as
-    queries; db = linear trajectories (flow up to 60 px at t = 1, 1% of
-    them far outside the image) at the bin midtimes; values = their flow to
-    t_ref = 0.37; the per-bin band rows the step computes."""
+def softmax_inputs(torch, loss_cfg, b, seed, far=0.01):
+    """The interpolation's operands at a step's shapes: the LUT grid as
+    queries; db = linear trajectories (flow up to 60 px at t = 1, a share
+    `far` of them far outside the image) at the bin midtimes; values =
+    their flow to t_ref = 0.37 (and to the next bin, as the step adds with
+    smooth_type on_flow_to_next); the band the step computes (per bin
+    unless the config asks for a dynamic one)."""
     from motionpriorcmax_tpu_torch.losses.focus import (interp_band,
                                                         lut_grid_points)
 
@@ -1010,14 +1029,19 @@ def softmax_inputs(torch, loss_cfg, b, seed):
     grid = torch.from_numpy(lut_grid_points(loss_cfg)).to(dev)      # [N, 2]
     n = grid.shape[0]
     flow = (torch.rand(b, n, 2, device=dev, generator=g) * 2 - 1) * 60.0
-    far = torch.rand(b, n, device=dev, generator=g) < 0.01
+    away = torch.rand(b, n, device=dev, generator=g) < far
     # Far trajectories: >= 3,000 px out of the image even at bin 0.
-    flow = torch.where(far[..., None], torch.full_like(flow, 1e5), flow)
+    flow = torch.where(away[..., None], torch.full_like(flow, 1e5), flow)
     t_mid = (torch.arange(nb, device=dev, dtype=torch.float32) + 0.5) / nb
     db = grid[None, None] + flow[:, None] * t_mid[None, :, None, None]
     vals = flow[:, None] * (0.37 - t_mid)[None, :, None, None]
+    if (loss_cfg.smooth_weight > 0
+            and loss_cfg.smooth_type == "on_flow_to_next"):
+        to_next = (flow[:, None] / nb).expand(-1, nb, -1, -1).clone()
+        to_next[:, -1] = 0.0
+        vals = torch.cat([vals, to_next], dim=-1)
     db = db.reshape(b * nb, n, 2).contiguous()
-    vals = vals.reshape(b * nb, n, 2).contiguous()
+    vals = vals.reshape(b * nb, n, vals.shape[-1]).contiguous()
     band = interp_band(loss_cfg, grid, db, b, nb, wq)
     return grid, db, vals, band
 
@@ -1046,6 +1070,185 @@ def sdpa_yardstick(torch, queries, db, vals, temp):
     return run
 
 
+def softmax_loss_cfgs():
+    """The focus-loss configurations of the two softmax steps: flow-train
+    (dsec.yaml, phase 16) and traj-train (Tab2L5, phase 22)."""
+    from motionpriorcmax_tpu_torch.cli.main import traj_train_configs
+
+    _, flow = flow_configs({**DSEC_CONFIG, "loss": {
+        **DSEC_CONFIG["loss"], "knn_method": "softmax"}})
+    traj = traj_train_configs({**TAB2L5_CONFIG, "loss": {
+        **TAB2L5_CONFIG["loss"], "knn_method": "softmax"}}, (H, W),
+        TRAIN_STEPS)[2]
+    return flow, traj
+
+
+def softmax_cases(torch, flow_loss, traj_loss):
+    """{label: (queries, db, vals, slots, temp)}: "flow", the flow-train
+    softmax step's shapes (B=14: G=210, Q=N=19,200, C=2, per-bin band, 1%
+    far trajectories), and "traj", the traj-train softmax step's (B=6:
+    G=246, Q=N=12,288, C=4 with the flow to the next bin, the per-group
+    dynamic band that traj_train_configs sets, no far trajectory: one
+    would widen its group's band to the whole grid)."""
+    from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
+
+    out = {}
+    for label, cfg, b, seed, far in (
+            ("flow", flow_loss, DSEC_CONFIG["data"]["batch_size"], 21, 0.01),
+            ("traj", traj_loss, TRAIN_BATCH, 23, 0.0)):
+        queries, db, vals, band = softmax_inputs(torch, cfg, b, seed, far)
+        slots = si.scan_slots(queries, band, db.shape[0], db.shape[1])
+        out[label] = (queries, db, vals, slots, float(cfg.softmax_temp))
+    return out
+
+
+def softmax_bound(torch, pairs, c, q, g, n, fwd):
+    """(bound ms, "operations" or "bytes", its three parts in ms) of one
+    pass over `pairs` (query, slot) pairs: one exp2 per pair on the SFUs
+    (16 per SM per clock), f32 instructions at 128 per SM per clock (fwd:
+    sub, sub, mul, fma, the denominator add and C fmas; bwd the same but
+    the add), and the bytes each input and output moves once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    exp2_ms = pairs / (16 * sms * clock) * 1e3
+    f32_ms = pairs * ((5 if fwd else 4) + c) / (128 * sms * clock) * 1e3
+    nbytes = (q * 8 + g * n * (8 + 4 * c) + g * q * 4 * (c + 1) if fwd else
+              q * 8 + g * n * 8 + g * q * 4 * c + g * n * 4 * c)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound = max(exp2_ms, f32_ms, bytes_ms)
+    unit = ("exp2" if bound == exp2_ms else
+            "f32" if bound == f32_ms else "bytes")
+    return bound, unit, {"exp2_ms": exp2_ms, "f32_ms": f32_ms,
+                         "bytes_ms": bytes_ms, "sms": sms, "clock": clock}
+
+
+def softmax_cut_sweep(torch, si):
+    """One query against db points at prescaled squared distances 120 to
+    160 (steps of 1/64, one group each), vals = gs = 1: the kernels' den
+    and d vals are each pair's weight.  Fails when a weight from d2 >=
+    CUT - 1 on is nonzero (the kernels compute exp2 up to CUT, so the cut
+    leaves out only zeros), when a weight that the plain version makes
+    nonzero is 0 in the kernel (a pair the cull dropped), when a kernel
+    weight differs from the plain one at all, or when the forward's and
+    the backward's weights differ.  Returns {exp_dtype: the largest d2
+    with a nonzero weight}."""
+    temp = 25.0
+    rscale = si._prescale(temp)
+    d2 = torch.arange(120 * 64, 160 * 64, device="cuda",
+                      dtype=torch.float64) / 64
+    g = d2.shape[0]
+    queries = torch.zeros(1, 2, device="cuda")
+    db = torch.zeros(g, 1, 2, device="cuda")
+    db[:, 0, 0] = (d2.sqrt() / rscale).float()
+    ones = torch.ones(g, 1, 1, device="cuda")
+    slots = si.scan_slots(queries, (0.0, 0.0, 0.0), g, 1)
+    got = (db[:, 0, 0] * rscale).double() ** 2     # the squared distances
+    last = {}
+    for exp_dtype in ("float32", "bfloat16"):
+        _, den = si.softmax_interp_fwd(queries, db, ones, temp, slots,
+                                       exp_dtype)
+        dv = si.softmax_interp_bwd(queries, db, ones, temp, slots, exp_dtype)
+        _, den_p = si.softmax_interp_fwd_plain(queries, db, ones, temp,
+                                               slots, exp_dtype)
+        w = den[:, 0]
+        live = w != 0
+        top = float(got[live].max()) if bool(live.any()) else float("nan")
+        beyond = int((live & (got >= si.CUT - 1)).sum())
+        dropped = int(((den_p[:, 0] != 0) & ~live).sum())
+        same = torch.equal(w, dv[:, 0, 0])
+        rel = float(((w - den_p[:, 0]).abs()
+                     / den_p[:, 0].abs().clamp(min=1e-45)).max())
+        print(f"[softmax-kernels] cut sweep {exp_dtype}: {g} squared "
+              f"distances 120-160, the largest with a nonzero kernel weight "
+              f"{top:.4f}; nonzero weights from {si.CUT - 1:g} on: {beyond} "
+              f"(cut {si.CUT:g}); nonzero plain weights that the kernel "
+              f"makes 0: {dropped}; fwd den and bwd d vals "
+              f"{'equal' if same else 'differ'}; largest relative "
+              f"difference to the plain weights {rel:.3e}")
+        if beyond or dropped or rel != 0 or not same:
+            fail(f"softmax cut sweep {exp_dtype}: a nonzero weight near the "
+                 f"cut, a dropped or changed weight, or the two kernels' "
+                 f"weights differ")
+        last[exp_dtype] = top
+    return last
+
+
+def softmax_check(torch, si, label, case, sub, seed):
+    """Row 7's kernels on one of softmax_cases against their plain versions
+    on the groups `sub` (TOL_SOFTMAX), the backward's bits in two calls,
+    and the (query, slot) pairs: scanned, needed (nonzero f32 weight), and
+    computed, counted by the kernels' counting build (which must give the
+    same values) beside the count of their partition's PyTorch twin
+    (cull_pairs).  Fails on a disagreement.  Returns (out, gs, {numbers}):
+    gs = a seeded cotangent over max(den, 1e-30)."""
+    queries, db, vals, slots, temp = case
+    g, n, c = vals.shape
+    q = queries.shape[0]
+    k_out, k_den = si.softmax_interp_fwd(queries, db, vals, temp, slots)
+    p_out, p_den = si.softmax_interp_fwd_plain(queries, db[sub], vals[sub],
+                                               temp, slots[sub])
+    e_f = check_close(f"softmax_interp_fwd {label} G={g} Q=N={q} C={c} "
+                      f"(groups {sub.tolist()} vs plain)", k_out[sub], p_out,
+                      TOL_SOFTMAX)
+    check_close(f"softmax_interp_fwd {label} den", k_den[sub], p_den,
+                TOL_SOFTMAX)
+    del p_out, p_den
+    gout = torch.randn(g, q, c, device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(seed))
+    gs = (gout / torch.clamp(k_den, min=1e-30)[..., None]).contiguous()
+    del gout
+    k_dv = si.softmax_interp_bwd(queries, db, gs, temp, slots)
+    same = torch.equal(k_dv.view(torch.int32), si.softmax_interp_bwd(
+        queries, db, gs, temp, slots).view(torch.int32))
+    print(f"[softmax-kernels] softmax_interp_bwd {label}: two calls "
+          f"{'give the same bits' if same else 'differ'}")
+    if not same:
+        fail(f"softmax_interp_bwd is not deterministic ({label})")
+    p_dv = si.softmax_interp_bwd_plain(queries, db[sub], gs[sub], temp,
+                                       slots[sub])
+    e_b = check_close(f"softmax_interp_bwd {label} (same groups)", k_dv[sub],
+                      p_dv, TOL_SOFTMAX)
+    del p_dv
+    torch.cuda.empty_cache()
+
+    twin = si.cull_pairs(queries, db, slots, temp)
+    counts = torch.zeros(2, 1, dtype=torch.int64, device="cuda")
+    c_out, c_den = si.softmax_interp_fwd(queries, db, vals, temp, slots,
+                                         pairs=counts[0])
+    c_dv = si.softmax_interp_bwd(queries, db, gs, temp, slots,
+                                 pairs=counts[1])
+    counted_same = (torch.equal(c_out, k_out) and torch.equal(c_den, k_den)
+                    and torch.equal(c_dv, k_dv))
+    del c_out, c_den, c_dv, k_den, k_dv
+    fwd_pairs, bwd_pairs = (int(x) for x in counts.view(-1).tolist())
+    needed = twin["needed"]
+    print(f"[softmax-kernels] {label}: {twin['scanned']:.4g} (query, slot) "
+          f"pairs scanned per pass, {twin['scanned'] / (g * q * n):.3f} of "
+          f"the dense {g * q * n:.4g}; needed (nonzero f32 weight) "
+          f"{needed:.4g} ({needed / twin['scanned']:.4f} of the scanned); "
+          f"computed, by the kernels' counters: forward {fwd_pairs:.4g} "
+          f"({fwd_pairs / needed:.2f}x needed), backward {bwd_pairs:.4g} "
+          f"({bwd_pairs / needed:.2f}x); the twin's count of the partition "
+          f"{twin['computed_fwd']:.4g} / {twin['computed_bwd']:.4g}; the "
+          f"counting build's values "
+          f"{'equal' if counted_same else 'differ from'} the kernels'")
+    if not counted_same:
+        fail(f"softmax_interp counting build: other values ({label})")
+    if min(fwd_pairs, bwd_pairs) < needed:
+        fail(f"softmax_interp {label}: the kernels computed fewer pairs "
+             f"than have a nonzero weight")
+    if (fwd_pairs, bwd_pairs) != (twin["computed_fwd"], twin["computed_bwd"]):
+        fail(f"softmax_interp {label}: the twin's partition counts "
+             f"{twin['computed_fwd']} / {twin['computed_bwd']} pairs, the "
+             f"kernels {fwd_pairs} / {bwd_pairs}")
+    return k_out, gs, {"max_abs_err_fwd": e_f, "max_abs_err_bwd": e_b,
+                       "scanned_pairs": twin["scanned"],
+                       "needed_pairs": needed,
+                       "computed_pairs_fwd": fwd_pairs,
+                       "computed_pairs_bwd": bwd_pairs}
+
+
 def phase_softmax_kernels(torch, loss_cfg, batch):
     """Rows 7 (fwd, bwd) and 8 against their plain versions at the
     softmax / device-voxelize path's shapes, then timed.  Returns {kernel
@@ -1057,41 +1260,17 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
     h, w = loss_cfg.image_shape
     nb = loss_cfg.num_bins
     b = batch["events"].shape[0]
-    temp = float(loss_cfg.softmax_temp)
-    queries, db, vals, band = softmax_inputs(torch, loss_cfg, b, 21)
+    sweep = softmax_cut_sweep(torch, si)
+    cases = softmax_cases(torch, loss_cfg, softmax_loss_cfgs()[1])
+    # The plain versions hold one dense [Q, N] matrix per group: 4 groups
+    # (the first and last bin of two samples) against the kernels' G.
+    queries, db, vals, slots, temp = cases["flow"]
     g, n, c = vals.shape
     q = queries.shape[0]
-    slots = si.scan_slots(queries, band, g, n)
-    pairs = si.scanned_pairs(slots, q)
-    print(f"[softmax-kernels] G={g} Q={q} N={n} C={c}, per-bin band: "
-          f"{pairs:.4g} (query, slot) pairs scanned per pass, "
-          f"{pairs / (g * q * n):.3f} of the dense {g * q * n:.4g}")
-    # The plain versions hold one dense [Q, N] matrix per group: 4 groups
-    # (the first and last bin of two samples) against the kernels' 210.
     sub = torch.tensor([0, nb - 1, g - nb, g - 1], device="cuda")
-    k_out, k_den = si.softmax_interp_fwd(queries, db, vals, temp, slots)
-    p_out, p_den = si.softmax_interp_fwd_plain(queries, db[sub], vals[sub],
-                                               temp, slots[sub])
-    e_f = check_close(f"softmax_interp_fwd G={g} Q=N={q} (groups "
-                      f"{sub.tolist()} vs plain)", k_out[sub], p_out,
-                      TOL_SOFTMAX)
-    check_close("softmax_interp_fwd den", k_den[sub], p_den, TOL_SOFTMAX)
-    gout = torch.randn(g, q, c, device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(22))
-    gs = (gout / torch.clamp(k_den, min=1e-30)[..., None]).contiguous()
-    k_dv = si.softmax_interp_bwd(queries, db, gs, temp, slots)
-    p_dv = si.softmax_interp_bwd_plain(queries, db[sub], gs[sub], temp,
-                                       slots[sub])
-    e_b = check_close("softmax_interp_bwd (same groups)", k_dv[sub], p_dv,
-                      TOL_SOFTMAX)
-    del p_out, p_den, p_dv
-    torch.cuda.empty_cache()
+    k_out, gs, checked = softmax_check(torch, si, "flow", cases["flow"], sub,
+                                       22)
 
-    # Bound: operations.  Per pair one exp2 on the SFUs (16 per SM per
-    # clock) and f32 instructions at 128 per SM per clock: fwd sub, sub,
-    # mul, fma, the denominator add and C fmas; bwd the same but the add.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = sm_clock_hz()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     lib = sdpa_yardstick(torch, queries, db, vals, temp)
     try:
@@ -1110,38 +1289,93 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
     except RuntimeError as exc:          # no SDPA backend for these inputs
         print(f"[softmax-timing] scaled_dot_product_attention refused: {exc}")
         lib, sdpa_err = None, None
-    for name, fp32_ops, fn, plain, library, err, nbytes in (
-            ("softmax_interp_fwd", 5 + c,
+    del k_out
+    for name, fwd, fn, plain, library in (
+            ("softmax_interp_fwd", True,
              lambda: si.softmax_interp_fwd(queries, db, vals, temp, slots),
              lambda: si.softmax_interp_fwd_plain(queries, db, vals, temp,
                                                  slots),
-             lib, e_f, q * 8 + g * n * (8 + 4 * c) + g * q * 4 * (c + 1)),
-            ("softmax_interp_bwd", 4 + c,
+             lib),
+            ("softmax_interp_bwd", False,
              lambda: si.softmax_interp_bwd(queries, db, gs, temp, slots),
              lambda: si.softmax_interp_bwd_plain(queries, db, gs, temp,
                                                  slots),
-             None, e_b, q * 8 + g * n * 8 + g * q * 4 * c + g * n * 4 * c)):
+             None)):
         k_ms = time_ms(torch, fn, flush, reps=10, warmup=2)
+        kc_ms = time_ms(torch, fn, flush, reps=10, warmup=0, card=True)
         p_ms = time_ms(torch, plain, flush, reps=1, warmup=1)
         l_ms = (time_ms(torch, library, flush, reps=3, warmup=1)
                 if library is not None else None)
-        sfu_ms = pairs / (16 * sms * clock) * 1e3
-        f32_ms = pairs * fp32_ops / (128 * sms * clock) * 1e3
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        bound = max(sfu_ms, f32_ms, bytes_ms)
+        needed = checked["needed_pairs"]
+        bound, unit, parts = softmax_bound(torch, needed, c, q, g, n, fwd)
+        old, _, _ = softmax_bound(torch, checked["scanned_pairs"], c, q, g, n,
+                                  fwd)
+        computed = checked["computed_pairs_fwd" if fwd else
+                           "computed_pairs_bwd"]
         lib_txt = (f"{l_ms * 1e3:.1f} us (dense, no band; max |diff| to "
                    f"the unbanded kernel {sdpa_err:.3e})" if l_ms is not None
                    else "none")
         print(f"[softmax-timing] {name}: kernel={k_ms * 1e3:.1f} us "
-              f"bound={bound * 1e3:.1f} us (operations: exp2 {sfu_ms * 1e3:.1f}"
-              f" us at 16/SM/clk, f32 {f32_ms * 1e3:.1f} us at 128/SM/clk, "
-              f"{sms} SMs at {clock / 1e6:.0f} MHz; bytes {bytes_ms * 1e3:.1f}"
-              f" us) plain={p_ms * 1e3:.1f} us library={lib_txt}")
-        out[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                     "bound_by": "operations", "library_ms": l_ms,
-                     "max_abs_err": err, "pairs": pairs}
+              f"(card {kc_ms * 1e3:.1f} us) bound={bound * 1e3:.1f} us over "
+              f"the {needed:.4g} needed pairs, {unit} (exp2 "
+              f"{parts['exp2_ms'] * 1e3:.1f} us at 16/SM/clk, f32 "
+              f"{parts['f32_ms'] * 1e3:.1f} us at 128/SM/clk, {parts['sms']} "
+              f"SMs at {parts['clock'] / 1e6:.0f} MHz; bytes "
+              f"{parts['bytes_ms'] * 1e3:.1f} us; over the scanned pairs "
+              f"{old * 1e3:.1f} us) plain={p_ms * 1e3:.1f} us "
+              f"library={lib_txt}")
+        out[name] = {"ms": k_ms, "card_ms": kc_ms, "plain_ms": p_ms,
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if unit == "bytes" else "operations",
+                     "bound_unit": unit, "bound_scanned_ms": old,
+                     "library_ms": l_ms,
+                     "max_abs_err": checked["max_abs_err_fwd" if fwd else
+                                            "max_abs_err_bwd"],
+                     "scanned_pairs": checked["scanned_pairs"],
+                     "needed_pairs": needed,
+                     "computed_pairs": computed,
+                     "cut_sweep_top_d2": sweep}
     out["softmax_interp_fwd"]["library_max_abs_diff"] = sdpa_err
-    del queries, db, vals, slots, k_out, k_den, gout, gs, k_dv, lib
+    out["softmax_interp_bwd"]["deterministic"] = True
+    del queries, db, vals, slots, gs, lib
+    torch.cuda.empty_cache()
+
+    # The traj-train softmax step's shapes (phase 22's): checked the same
+    # way, on the first and last bin of two samples, then timed.
+    case = cases.pop("traj")
+    del cases
+    queries, db, vals, slots, temp = case
+    g, n, c = vals.shape
+    q = queries.shape[0]
+    bins = g // TRAIN_BATCH
+    sub = torch.tensor([0, bins - 1, g - bins, g - 1], device="cuda")
+    _, gs, checked = softmax_check(torch, si, "traj", case, sub, 24)
+    del case
+    torch.cuda.empty_cache()
+    for name, fwd, fn in (
+            ("softmax_interp_fwd", True,
+             lambda: si.softmax_interp_fwd(queries, db, vals, temp, slots)),
+            ("softmax_interp_bwd", False,
+             lambda: si.softmax_interp_bwd(queries, db, gs, temp, slots))):
+        k_ms = time_ms(torch, fn, flush, reps=10, warmup=2)
+        kc_ms = time_ms(torch, fn, flush, reps=10, warmup=0, card=True)
+        bound, unit, _ = softmax_bound(torch, checked["needed_pairs"], c, q,
+                                       g, n, fwd)
+        computed = checked["computed_pairs_fwd" if fwd else
+                           "computed_pairs_bwd"]
+        print(f"[softmax-timing] {name} traj-train shape G={g} Q=N={q} C={c}"
+              f": kernel={k_ms * 1e3:.1f} us (card {kc_ms * 1e3:.1f} us) "
+              f"bound={bound * 1e3:.1f} us ({unit}); pairs scanned "
+              f"{checked['scanned_pairs']:.4g}, needed "
+              f"{checked['needed_pairs']:.4g}, computed {computed:.4g}")
+        out[name].update(
+            traj_ms=k_ms, traj_card_ms=kc_ms, traj_bound_ms=bound,
+            traj_max_abs_err=checked["max_abs_err_fwd" if fwd else
+                                     "max_abs_err_bwd"],
+            traj_scanned_pairs=checked["scanned_pairs"],
+            traj_needed_pairs=checked["needed_pairs"],
+            traj_computed_pairs=computed)
+    del queries, db, vals, slots, gs
     torch.cuda.empty_cache()
 
     # Row 8: the step's events (cell-sorted per polarity half), the same
@@ -1917,15 +2151,16 @@ def phase_traj_batches():
 
 
 def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
-                     want, tag, supervised=False):
+                     want, tag, supervised=False, want_losses=None):
     """traj-train's loop (training/loop.py::train_traj, the CLI's) at full
     width with seeded weights: 1 warm-up + 3 timed steps, 1 step under
     torch.profiler (the idle share), then the validation pass and a
     checkpoint.  Fails unless every step launches `want` and the val pass
     TRAJ_VAL, the loss is finite and moves, the context encoder's BatchNorm
     statistics move, TF32 is off in the forward and the backward, the
-    validation metrics are finite and the checkpoint is written.  Returns
-    the kernels' launch counts over the run."""
+    validation metrics are finite and the checkpoint is written, and the
+    first steps' losses are within TOL_STEP_LOSS of `want_losses` when
+    given.  Returns the kernels' launch counts over the run."""
     import functools
     import tempfile
 
@@ -2015,6 +2250,13 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
         fail(f"train losses {losses}")
     if len(set(losses)) < 2:
         fail(f"the loss did not move: {losses}")
+    if want_losses is not None:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        print(f"[{tag}] steps 0-{len(want_losses) - 1} losses against the "
+              f"recorded ones {list(want_losses)}: max rel diff {rel:.2e} "
+              f"(bound {TOL_STEP_LOSS:g})")
+        if not rel <= TOL_STEP_LOSS:
+            fail(f"the step losses {losses} moved from {want_losses}")
     bad = [k for k, v in val.items() if k != "step" and not np.isfinite(v)]
     if bad:
         fail(f"non-finite validation metrics {bad[:5]}")
@@ -2834,11 +3076,18 @@ FLOW_WORK = {
                       "*card_ms: the card's time alone; deterministic: two "
                       "calls gave the same bits); replaces the boundary "
                       "gather of ops/events.py:459-464",
-    "softmax_interp_fwd": "G=210, Q=N=19,200, C=2, per-bin band, f32 "
-                          "(library: scaled_dot_product_attention, dense, "
-                          "no band)",
-    "softmax_interp_bwd": "G=210, Q=N=19,200, C=2, per-bin band, f32 "
-                          "d vals",
+    "softmax_interp_fwd": "G=210, Q=N=19,200, C=2, per-bin band, 1% far "
+                          "trajectories, f32 (library: "
+                          "scaled_dot_product_attention, dense, no band; "
+                          "bound over the needed pairs, those with a "
+                          "nonzero weight; bound_scanned_ms: over every "
+                          "scanned pair; *card_ms: the card's time alone; "
+                          "traj_*: the traj-train softmax step's G=246, "
+                          "Q=N=12,288, C=4, per-group dynamic band)",
+    "softmax_interp_bwd": "G=210, Q=N=19,200, C=2, per-bin band, 1% far "
+                          "trajectories, f32 d vals (bound and traj_* as "
+                          "the forward's; deterministic: two calls gave "
+                          "the same bits)",
     "voxel_vote": "B=14, M=2^20 cell-sorted events -> 14 x 15 x 480 x 640 "
                   "(unsorted_*: the same events in random order; skewed_*: "
                   "half the live events of each sample in one 16 x 64 "
@@ -2942,7 +3191,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_traj_train(torch, {**TAB2L5_CONFIG, "loss": {
         **TAB2L5_CONFIG["loss"], "knn_method": "softmax"}}, selfsup,
-        val_samples, smi_line, TRAJ_SOFTMAX_STEP, "traj-train-softmax")
+        val_samples, smi_line, TRAJ_SOFTMAX_STEP, "traj-train-softmax",
+        want_losses=TRAJ_SOFTMAX_STEP_LOSSES)
     torch.cuda.empty_cache()
     phase_traj_train(torch, TAB2L5_CONFIG, supervised, val_samples, smi_line,
                      TRAJ_SUPERVISED_STEP, "traj-train-supervised",

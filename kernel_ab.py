@@ -1,14 +1,17 @@
 """Time kernels of two or more checkouts of the PyTorch port on one card,
 under the same timers, in one call: the corr-window lookup (kernel row 1),
-the voxel vote (kernel row 8) and the IWE vote's forward (rows 3 and 4).
+the voxel vote (kernel row 8), the IWE vote's forward (rows 3 and 4), the
+LUT gather's two backwards (rows 6 and 5) and the softmax interpolation
+(row 7).
 
     python3 kernel_ab.py parent=path/to/other/checkout change=. \
         --order parent,change,change,parent
 
 Each run is a process of its own that imports `motionpriorcmax_tpu_torch`
 from its checkout (and builds that checkout's `corr_window.cu`,
-`voxel_vote.cu`, `iwe_vote.cu`, `lut_gather.cu` and `segment_sum.cu`
-there), makes the same inputs from a seed on the card, holds every kernel
+`voxel_vote.cu`, `iwe_vote.cu`, `lut_gather.cu`, `segment_sum.cu` and
+`softmax_interp.cu` there), makes the same inputs from a seed on the card,
+holds every kernel
 result against its plain version, and times, with the L2 flushed before
 each call, these sections:
 
@@ -42,9 +45,24 @@ each call, these sections:
                and fails the run above chip_smoke.py's TOL_VOTE_FWD,
                and "band_share" is the share of live taps that the
                forward's plain twin votes through its shared-memory band
-               (null for a checkout without the twin).
+               (null for a checkout without the twin);
+  softmax      `softmax_interp_fwd` and `softmax_interp_bwd` on
+               chip_smoke.softmax_cases: "flow" (the flow-train softmax
+               step's G=210, Q=N=19,200, C=2, per-bin band, 1% far
+               trajectories) and "traj" (the traj-train softmax step's
+               G=246, Q=N=12,288, C=4, per-group dynamic band); each
+               kernel against its plain version on three groups (fails
+               above chip_smoke.py's TOL_SOFTMAX, relative to max(1,
+               max |plain|)), the backward twice (fails when the two
+               calls differ in a bit), and "digest", the SHA-1 of the
+               bytes of out, den and d vals with -0 made +0: equal digests
+               in two runs mean equal values, bit for bit, up to the sign
+               of a zero.
 
-Two timers, each the median of 20 calls between two CUDA events:
+`--sections softmax,lookup` runs only those sections (default: all).
+
+Two timers, each the median of 20 calls (10 in `softmax`) between two CUDA
+events:
   ms       the events recorded around the call as `chip_smoke.py`'s `ms`
            is: when the host takes longer to enqueue the call than the card
            takes to flush, the host's launch overhead is in it;
@@ -79,9 +97,10 @@ import time
 import functools
 
 from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS,
-                        TOL_SEGMENT_SUM, TOL_SEGSUM, TOL_VOTE_FWD, W,
-                        level_inputs, nvidia_smi_line, segment_sum_cases,
-                        segsum_cases, vote_band_share, vote_batch,
+                        TOL_SEGMENT_SUM, TOL_SEGSUM, TOL_SOFTMAX,
+                        TOL_VOTE_FWD, W, level_inputs, nvidia_smi_line,
+                        segment_sum_cases, segsum_cases, softmax_cases,
+                        softmax_loss_cfgs, vote_band_share, vote_batch,
                         vote_cases)
 
 VOX_B, VOX_M, VOX_LIVE, VOX_NB, VOX_H, VOX_W = 14, 1 << 20, 1_000_000, 15, 480, 640
@@ -274,6 +293,60 @@ def run_iwe_vote(torch, flush):
     return out
 
 
+def run_softmax(torch, flush):
+    import hashlib
+
+    from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
+
+    def digest(t):
+        # + 0.0 makes -0 into +0: a skipped zero term may flip a zero's sign.
+        return hashlib.sha1((t + 0.0).contiguous().cpu().numpy().tobytes()
+                            ).hexdigest()
+
+    def rel_err(got, want):
+        return (float((got - want).abs().max())
+                / max(1.0, float(want.abs().max())))
+
+    out = {}
+    for label, (queries, db, vals, slots, temp) in softmax_cases(
+            torch, *softmax_loss_cfgs()).items():
+        g, _, c = vals.shape
+        gs = torch.randn(g, queries.shape[0], c, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(24))
+        k_out, k_den = si.softmax_interp_fwd(queries, db, vals, temp, slots)
+        k_dv = si.softmax_interp_bwd(queries, db, gs, temp, slots)
+        same = torch.equal(k_dv.view(torch.int32), si.softmax_interp_bwd(
+            queries, db, gs, temp, slots).view(torch.int32))
+        sub = torch.tensor([0, g // 2, g - 1], device="cuda")
+        p_out, _ = si.softmax_interp_fwd_plain(queries, db[sub], vals[sub],
+                                               temp, slots[sub])
+        p_dv = si.softmax_interp_bwd_plain(queries, db[sub], gs[sub], temp,
+                                           slots[sub])
+        err_f, err_b = rel_err(k_out[sub], p_out), rel_err(k_dv[sub], p_dv)
+        del p_out, p_dv
+        if not (err_f <= TOL_SOFTMAX and err_b <= TOL_SOFTMAX and same):
+            raise SystemExit(f"kernel_ab: softmax {label}: errors {err_f:.3e}"
+                             f" / {err_b:.3e} (bound {TOL_SOFTMAX:g}), two "
+                             f"backward calls "
+                             f"{'agree' if same else 'differ'} in bits")
+        res = {"max_rel_err_fwd": err_f, "max_rel_err_bwd": err_b,
+               "deterministic": same,
+               "digest": {"out": digest(k_out), "den": digest(k_den),
+                          "dvals": digest(k_dv)}}
+        del k_out, k_den, k_dv
+        for name, fn in (
+                ("fwd", lambda: si.softmax_interp_fwd(queries, db, vals, temp,
+                                                      slots)),
+                ("bwd", lambda: si.softmax_interp_bwd(queries, db, gs, temp,
+                                                      slots))):
+            ms, card_ms, host_us = timers(torch, fn, flush, reps=10)
+            res[name] = {"ms": ms, "card_ms": card_ms, "host_us": host_us}
+        out[label] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 def staging() -> None:
     """Level 1 staged by cp.async (the port's kernel) and by TMA."""
     import ctypes
@@ -336,7 +409,7 @@ def staging() -> None:
 
 SECTIONS = {"lookup": run_lookup, "voxel_vote": run_vote,
             "iwe_vote": run_iwe_vote, "segsum": run_segsum,
-            "segment_sum": run_segment_sum}
+            "segment_sum": run_segment_sum, "softmax": run_softmax}
 # The cases of each section, in the order of the table.
 CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
          "iwe_vote": ("sorted", "unsorted", "skewed", "wide"),
@@ -344,7 +417,7 @@ CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
          "segment_sum": ("path", "skewed", "traj")}
 
 
-def worker(label: str, tree: str) -> None:
+def worker(label: str, tree: str, sections: str) -> None:
     tree = os.path.abspath(tree)
     sys.path[0] = tree                      # this checkout's package only
     import torch
@@ -357,12 +430,12 @@ def worker(label: str, tree: str) -> None:
     if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
         raise SystemExit(f"kernel_ab: imported {pkg.__file__}, not {tree}'s")
     for name in ("corr_window", "voxel_vote", "iwe_vote", "lut_gather",
-                 "segment_sum"):
+                 "segment_sum", "softmax_interp"):
         build_library(name)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     res = {"run": label, "tree": tree}
-    for name, run in SECTIONS.items():
-        res[name] = run(torch, flush)
+    for name in sections.split(","):
+        res[name] = SECTIONS[name](torch, flush)
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
 
@@ -373,11 +446,17 @@ def main() -> int:
     ap.add_argument("--order", help="labels in run order (default: as given)")
     ap.add_argument("--staging", action="store_true",
                     help="level 1 staged by cp.async and by TMA, here")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="comma-separated sections to run (default: all)")
     ap.add_argument("--worker", nargs=2, metavar=("LABEL", "TREE"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
+    unknown = set(args.sections.split(",")) - set(SECTIONS)
+    if unknown:
+        ap.error(f"unknown sections {sorted(unknown)}; known: "
+                 f"{list(SECTIONS)}")
     if args.worker:
-        worker(*args.worker)
+        worker(*args.worker, args.sections)
         return 0
     if args.staging:
         print(nvidia_smi_line(), flush=True)
@@ -392,7 +471,8 @@ def main() -> int:
     for label in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", label,
-             trees[label]], capture_output=True, text=True, timeout=900)
+             trees[label], "--sections", args.sections],
+            capture_output=True, text=True, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:
             print(f"kernel_ab: run {label} failed (rc {proc.returncode})")
@@ -405,13 +485,18 @@ def main() -> int:
 
     print("each: ms / card_ms in us / host_us")
     for r in results:
-        lk = r["lookup"]
-        parts = [f"lookup {cell(lk)} ({lk['launches_per_iteration']} "
-                 f"launches), level 1 {lk['level1_ms'] * 1e3:.1f}/"
-                 f"{lk['level1_card_ms'] * 1e3:.1f}"]
+        parts = []
+        if "lookup" in r:
+            lk = r["lookup"]
+            parts.append(f"lookup {cell(lk)} ({lk['launches_per_iteration']} "
+                         f"launches), level 1 {lk['level1_ms'] * 1e3:.1f}/"
+                         f"{lk['level1_card_ms'] * 1e3:.1f}")
         parts += [f"{name} " + "  ".join(f"{k} {cell(r[name][k])}"
                                          for k in keys)
-                  for name, keys in CASES.items()]
+                  for name, keys in CASES.items() if name in r]
+        parts += [f"softmax {k} fwd {cell(v['fwd'])} bwd {cell(v['bwd'])} "
+                  f"digest {'/'.join(d[:8] for d in v['digest'].values())}"
+                  for k, v in r.get("softmax", {}).items()]
         print(f"{r['run']:<10} " + " | ".join(parts))
     return 0
 

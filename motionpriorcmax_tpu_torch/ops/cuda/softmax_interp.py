@@ -25,10 +25,20 @@ and both the kernels and the plain versions scan those ranges.  The CUDA
 source is `motionpriorcmax_tpu_torch/csrc/softmax_interp.cu`; its header
 gives the bound and the design.
 
+The kernels skip every pair whose weight is exactly 0 by a conservative
+test (a lower bound of the prescaled squared distance at least `CUT`)
+against bounding boxes of a warp's queries (forward) or slots (backward),
+grouped along a Morton curve.  `softmax_interp_culled_plain` runs that
+partition in PyTorch (`cull_pairs` counts it without the dense weights);
+given a `pairs` counter, the launch functions run a build of the kernel
+that counts the pairs it computes, to hold the twin's count against.
+
   softmax_interp(queries, db, vals, temp, band, ...)  the differentiable op
   scan_slots(queries, band, groups, n)                the scanned ranges
   softmax_interp_fwd / softmax_interp_bwd             the launches (counted)
   softmax_interp_fwd_plain / softmax_interp_bwd_plain the same in PyTorch
+  softmax_interp_culled_plain                         both, through the cull
+  cull_pairs(queries, db, slots, temp)                the pairs each needs
 
 On a CUDA tensor the launch functions run their kernel or raise; on a CPU
 tensor they run the plain version.  `.launches` counts kernel launches.
@@ -39,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +59,16 @@ from ...device import no_tf32
 BQ = 512            # queries per band block (the TPU kernel's BQ)
 BN = 1024           # db slots per band tile (the TPU kernel's BN)
 MAX_CHANNELS = 8    # value channels the kernels are built for
+# The kernels' partition (csrc/softmax_interp.cu): a pair is skipped when a
+# lower bound of its prescaled squared distance is at least CUT (its f32
+# and bf16 weights are then exactly 0); points are grouped along a Morton
+# curve of CELLS_PER_UNIT cells per prescaled unit; the backward tests
+# strips of STRIP consecutive queries.
+CUT = 152.0
+CELLS_PER_UNIT = 2.0
+WARP = 32
+STRIP = 8
+_PAD_CODE = 0xFFFFFFFF
 _LOG2E = 1.4426950408889634
 _EXP_DTYPES = ("float32", "bfloat16")
 
@@ -143,21 +163,31 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _weights_plain(queries, db_g, slots_g, rscale, bf16):
-    """[Q, N] weights of one group, zero outside each block's range."""
-    q, n = queries.shape[0], db_g.shape[0]
-    qs, ds = queries * rscale, db_g * rscale
+def _exp_weights(qs, ds, bf16):
+    """[Qs, Ns] weights of prescaled queries qs [Qs, 2] and points ds
+    [Ns, 2]."""
     ey = qs[:, None, 0] - ds[None, :, 0]
     ex = qs[:, None, 1] - ds[None, :, 1]
     e = -(ey * ey + ex * ex)
     w = torch.exp2(_bf16(e) if bf16 else e)
-    if bf16:
-        w = _bf16(w)
+    return _bf16(w) if bf16 else w
+
+
+def _weights_plain(queries, db_g, slots_g, rscale, bf16):
+    """[Q, N] weights of one group, zero outside each block's range."""
+    q, n = queries.shape[0], db_g.shape[0]
+    w = _exp_weights(queries * rscale, db_g * rscale, bf16)
     block = torch.arange(q, device=queries.device) // BQ
     lo = slots_g[block, 0].long()[:, None]
     hi = slots_g[block, 1].long()[:, None]
     slot = torch.arange(n, device=queries.device)[None]
     return torch.where((slot >= lo) & (slot < hi), w, torch.zeros_like(w))
+
+
+def _fwd_from_weights(w, v):
+    """(out [Q, C], den [Q]) of one group's [Q, N] weights."""
+    den = w.sum(dim=1)
+    return (w @ v) / torch.clamp(den, min=1e-30)[:, None], den
 
 
 def softmax_interp_fwd_plain(queries, db, vals, temp, slots,
@@ -171,9 +201,9 @@ def softmax_interp_fwd_plain(queries, db, vals, temp, slots,
     outs, dens = [], []
     with no_tf32():
         for g in range(db.shape[0]):
-            w = _weights_plain(queries, db[g], slots[g], rscale, bf16)
-            den = w.sum(dim=1)
-            outs.append((w @ v[g]) / torch.clamp(den, min=1e-30)[:, None])
+            out, den = _fwd_from_weights(
+                _weights_plain(queries, db[g], slots[g], rscale, bf16), v[g])
+            outs.append(out)
             dens.append(den)
     return torch.stack(outs), torch.stack(dens)
 
@@ -192,20 +222,258 @@ def softmax_interp_bwd_plain(queries, db, gs, temp, slots,
             for g in range(db.shape[0])])
 
 
+# The kernels' partition, in PyTorch.  Prescaled points are grouped along a
+# Morton curve as the kernels sort them: per block of `block` items, by
+# code (16-bit cells of 1 / CELLS_PER_UNIT units, 32768 at the origin,
+# clamped; NaN in cell 0) and then by index, padding items last.
+
+def _spread(v):
+    v = v & 0xFFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def _morton(p):
+    """int64 Morton codes of prescaled f32 points [..., 2]."""
+    c = torch.floor(p * CELLS_PER_UNIT) + 32768.0
+    c = torch.fmin(torch.fmax(c, c.new_zeros(())), c.new_full((), 65535.0))
+    c = c.long()
+    return (_spread(c[..., 0]) << 1) | _spread(c[..., 1])
+
+
+def _curve_groups(p, block):
+    """int64 [ceil(n / block), block / WARP, WARP]: the indices of the n
+    points p [n, 2] that each warp of each block takes, -1 for padding."""
+    n = p.shape[0]
+    nb = -(-n // block)
+    code = torch.full((nb * block,), _PAD_CODE, dtype=torch.int64,
+                      device=p.device)
+    code[:n] = _morton(p)
+    order = torch.sort(code.view(nb, block), dim=1, stable=True).indices
+    idx = order + torch.arange(nb, device=p.device)[:, None] * block
+    idx = torch.where(idx < n, idx, torch.full_like(idx, -1))
+    return idx.view(nb, block // WARP, WARP)
+
+
+def _warp_of(warps, count):
+    """int64 [count]: the flat index of the warp that takes each item."""
+    flat = warps.reshape(-1, WARP)
+    rows = torch.arange(flat.shape[0], device=warps.device)[:, None]
+    out = torch.empty(count, dtype=torch.int64, device=warps.device)
+    out[flat[flat >= 0]] = rows.expand_as(flat)[flat >= 0]
+    return out
+
+
+def _boxes(p, idx):
+    """(y0, y1, x0, x1) [..., 4] of the points p[idx] over idx's last dim,
+    -1 left out, a NaN coordinate spanning everything; empty: (inf, -inf,
+    inf, -inf)."""
+    inf = float("inf")
+    v = p[idx.clamp(min=0)]
+    ok = (idx >= 0)[..., None]
+    nan = torch.isnan(v)
+    lo = torch.where(ok, torch.where(nan, -inf, v), inf).amin(dim=-2)
+    hi = torch.where(ok, torch.where(nan, inf, v), -inf).amax(dim=-2)
+    return torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+
+
+def _may_live(dy, dx):
+    """Whether a pair at per-axis gaps dy, dx may have a nonzero weight (NaN
+    gaps count as 0, as fmaxf takes them)."""
+    zero = dy.new_zeros(())
+    dy, dx = torch.fmax(dy, zero), torch.fmax(dx, zero)
+    return ~(dy * dy + dx * dx >= CUT)
+
+
+def _box_live(y, x, box):
+    """_may_live for points (y, x) against boxes [..., 4] (broadcast)."""
+    return _may_live(torch.fmax(box[..., 0] - y, y - box[..., 1]),
+                     torch.fmax(box[..., 2] - x, x - box[..., 3]))
+
+
+def _fwd_partition(qs):
+    """The forward's warps: (query index [nqb, 16, 32], -1 for padding;
+    their boxes [nqb, 16, 4]) for prescaled queries qs [Q, 2]."""
+    warps = _curve_groups(qs, BQ)
+    return warps, _boxes(qs, warps)
+
+
+def _fwd_keep(box, ds, slots_g):
+    """bool [nqb, 16, N]: the slots that each forward warp adds, for
+    prescaled points ds [N, 2] and one group's ranges slots_g [nqb, 2]."""
+    s = torch.arange(ds.shape[0], device=ds.device)
+    inr = (s >= slots_g[:, 0:1]) & (s < slots_g[:, 1:2])
+    b = box[..., None, :]
+    return _box_live(ds[:, 0], ds[:, 1], b) & inr[:, None]
+
+
+def _bwd_strips(qs):
+    """The backward's strips of STRIP queries per query block: (boxes
+    [nqb, 64, 4], real queries [nqb, 64], block boxes [nqb, 4])."""
+    q = qs.shape[0]
+    nqb = -(-q // BQ)
+    idx = torch.arange(nqb * BQ, device=qs.device)
+    idx = torch.where(idx < q, idx, torch.full_like(idx, -1))
+    idx = idx.view(nqb, BQ // STRIP, STRIP)
+    sbox = _boxes(qs, idx)
+    qbox = torch.stack([sbox[..., 0].amin(1), sbox[..., 1].amax(1),
+                        sbox[..., 2].amin(1), sbox[..., 3].amax(1)], -1)
+    return sbox, (idx >= 0).sum(-1), qbox
+
+
+def _bwd_live(ds, slots_g, sbox, qbox):
+    """The backward's work for prescaled points ds [N, 2] and one group's
+    ranges: (its warps' slots [nt, 32, 32], -1 for padding; near [N, nqb]:
+    the slot is in the query block's range and within the cut of its box;
+    the near lanes per warp and query block [nt, 32, nqb]; strip_live [nt,
+    32, nqb, 64]: the strips each warp walks)."""
+    n = ds.shape[0]
+    warps = _curve_groups(ds, BN)
+    s = torch.arange(n, device=ds.device)[:, None]
+    near = (s >= slots_g[:, 0]) & (s < slots_g[:, 1]) & _box_live(
+        ds[:, 0:1], ds[:, 1:2], qbox)
+    lane_near = near[warps.clamp(min=0)] & (warps >= 0)[..., None]
+    near_lanes = torch.where(lane_near, warps[..., None], -1).transpose(2, 3)
+    wbox = _boxes(ds, near_lanes)[..., None, :]        # [nt, 32, nqb, 1, 4]
+    live = _may_live(torch.fmax(sbox[..., 0] - wbox[..., 1],
+                                wbox[..., 0] - sbox[..., 1]),
+                     torch.fmax(sbox[..., 2] - wbox[..., 3],
+                                wbox[..., 2] - sbox[..., 3]))
+    counts = (near_lanes >= 0).sum(-1)
+    return warps, near, counts, live & (counts > 0)[..., None]
+
+
+def cull_pairs(queries: torch.Tensor, db: torch.Tensor, slots: torch.Tensor,
+               temp: float, exp_dtype: str = "float32") -> dict:
+    """The (query, slot) pairs of one pass over the band: `scanned` (every
+    pair of the ranges), `needed` (a nonzero weight), `computed_fwd` and
+    `computed_bwd` (the pairs the kernels' cull leaves).  Runs on the
+    inputs' device without dense weights; one host sync at the end."""
+    if exp_dtype not in _EXP_DTYPES:
+        raise ValueError(f"exp_dtype must be one of {_EXP_DTYPES}, got "
+                         f"{exp_dtype!r}")
+    bf16 = exp_dtype == "bfloat16"
+    rscale = _prescale(temp)
+    q = queries.shape[0]
+    g_count, n = db.shape[:2]
+    qs = queries.to(torch.float32) * rscale
+    fwarps, fbox = _fwd_partition(qs)
+    nlive = (fwarps >= 0).sum(-1)
+    sbox, size, qbox = _bwd_strips(qs)
+    fwd = bwd = needed = torch.zeros((), dtype=torch.int64, device=db.device)
+    for g in range(g_count):
+        ds = db[g] * rscale
+        fwd = fwd + (_fwd_keep(fbox, ds, slots[g]).sum(-1) * nlive).sum()
+        _, _, counts, live = _bwd_live(ds, slots[g], sbox, qbox)
+        bwd = bwd + (counts * (live * size).sum(-1)).sum()
+    # Nonzero weights, per query block over its ranges, 16 groups at a time.
+    host = slots.cpu()
+    for b in range(slots.shape[1]):
+        qb = qs[b * BQ:(b + 1) * BQ]
+        for g0 in range(0, g_count, 16):
+            lo = int(host[g0:g0 + 16, b, 0].min())
+            hi = int(host[g0:g0 + 16, b, 1].max())
+            if hi <= lo:
+                continue
+            sl = slots[g0:g0 + 16, b].long()
+            ds = db[g0:g0 + 16, lo:hi] * rscale                  # [g, W, 2]
+            w = torch.stack([_exp_weights(qb, d, bf16) for d in ds])
+            s = torch.arange(lo, hi, device=db.device)
+            inr = (s >= sl[:, 0:1]) & (s < sl[:, 1:2])           # [g, W]
+            needed = needed + ((w != 0) & inr[:, None]).sum()
+    return {"scanned": scanned_pairs(slots, q), "needed": int(needed),
+            "computed_fwd": int(fwd), "computed_bwd": int(bwd)}
+
+
+def softmax_interp_culled_plain(queries, db, vals, gs, temp, slots,
+                                exp_dtype="float32"):
+    """(out [G, Q, C], den [G, Q], d vals [G, N, C], pairs): the plain
+    versions' dense weights with every pair that the kernels' cull skips
+    set to 0.  The cull drops only zero weights when these equal the plain
+    versions' results exactly; `pairs` counts as `cull_pairs` does, and
+    `dropped` counts the nonzero weights the cull would skip (0)."""
+    _check(queries, db, vals, slots, exp_dtype)
+    _check(queries, db, gs, slots, exp_dtype)
+    bf16 = exp_dtype == "bfloat16"
+    rscale = _prescale(temp)
+    v = _bf16(vals) if bf16 else vals
+    g_in = _bf16(gs) if bf16 else gs
+    q, n = queries.shape[0], db.shape[1]
+    qs = queries * rscale
+    fwarps, fbox = _fwd_partition(qs)
+    fwarp_of = _warp_of(fwarps, q)
+    sbox, _, qbox = _bwd_strips(qs)
+    qblock = torch.arange(q, device=db.device) // BQ
+    qstrip = (torch.arange(q, device=db.device) % BQ) // STRIP
+    outs, dens, dvals = [], [], []
+    pairs = dict(needed=0, computed_fwd=0, computed_bwd=0, dropped=0)
+    with no_tf32():
+        for g in range(db.shape[0]):
+            w = _weights_plain(queries, db[g], slots[g], rscale, bf16)
+            ds = db[g] * rscale
+            keep_f = _fwd_keep(fbox, ds, slots[g]).reshape(-1, n)[fwarp_of]
+            warps, near, _, live = _bwd_live(ds, slots[g], sbox, qbox)
+            live_s = live.reshape(-1, *live.shape[2:])[_warp_of(warps, n)]
+            keep_b = (live_s[:, qblock, qstrip] & near[:, qblock]).T
+            keep_b = keep_b.contiguous()
+            out, den = _fwd_from_weights(
+                torch.where(keep_f, w, torch.zeros_like(w)), v[g])
+            outs.append(out)
+            dens.append(den)
+            dvals.append(torch.where(keep_b, w, torch.zeros_like(w)).T
+                         @ g_in[g])
+            nz = w != 0
+            pairs["needed"] += int(nz.sum())
+            pairs["computed_fwd"] += int(keep_f.sum())
+            pairs["computed_bwd"] += int(keep_b.sum())
+            pairs["dropped"] += int((nz & ~keep_f).sum()
+                                    + (nz & ~keep_b).sum())
+    pairs["scanned"] = scanned_pairs(slots, q)
+    return torch.stack(outs), torch.stack(dens), torch.stack(dvals), pairs
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The built library's two C entry points, argument types declared."""
+    """The built library's C entry points (fwd, bwd, setup), argument types
+    declared."""
     from .build import load_library
 
     lib = load_library("softmax_interp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.softmax_interp_fwd
     fwd.restype = i
-    fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
+    fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, p]
     bwd = lib.softmax_interp_bwd
     bwd.restype = i
-    bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
-    return fwd, bwd
+    bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
+    setup = lib.softmax_interp_setup
+    setup.restype = i
+    setup.argtypes = []
+    return fwd, bwd, setup
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(device_index: int) -> None:
+    """The backward kernels' shared-memory limits, set once per device."""
+    _, _, setup = _kernels()
+    with torch.cuda.device(device_index):
+        err = setup()
+    if err != 0:
+        raise RuntimeError(f"softmax_interp set-up failed: cudaError_t {err}")
+
+
+def _pairs_ptr(pairs, device):
+    """The address of a pairs counter (int64 [1] on `device`), or None."""
+    if pairs is None:
+        return None
+    if (pairs.dtype != torch.int64 or pairs.shape != (1,)
+            or pairs.device != device):
+        raise ValueError(f"pairs must be an int64 [1] tensor on {device}, got "
+                         f"{pairs.dtype} {tuple(pairs.shape)} on "
+                         f"{pairs.device}")
+    return pairs.data_ptr()
 
 
 def _kernel_args(queries, db, values, slots):
@@ -221,16 +489,20 @@ def _kernel_args(queries, db, values, slots):
 
 def softmax_interp_fwd(queries: torch.Tensor, db: torch.Tensor,
                        vals: torch.Tensor, temp: float, slots: torch.Tensor,
-                       exp_dtype: str = "float32"
+                       exp_dtype: str = "float32",
+                       pairs: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [G, Q, C], den [G, Q]) for queries [Q, 2], db [G, N, 2], vals
     [G, N, C] f32 and the ranges of `scan_slots`.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises.
+    on the current stream or raises.  `pairs`, an int64 [1] tensor on the
+    card, makes the kernel add the (query, slot) pairs it computes to it.
     """
     _check(queries, db, vals, slots, exp_dtype)
     if db.device.type != "cuda":
+        if pairs is not None:
+            raise ValueError("pairs counts a kernel's work: CUDA tensors only")
         return softmax_interp_fwd_plain(queries, db, vals, temp, slots,
                                         exp_dtype)
     queries, db, vals, slots = _kernel_args(queries, db, vals, slots)
@@ -238,13 +510,14 @@ def softmax_interp_fwd(queries: torch.Tensor, db: torch.Tensor,
     q = queries.shape[0]
     out = torch.empty(g, q, c, dtype=torch.float32, device=db.device)
     den = torch.empty(g, q, dtype=torch.float32, device=db.device)
-    fwd, _ = _kernels()
+    count = _pairs_ptr(pairs, db.device)
+    fwd, _, _ = _kernels()
     with torch.cuda.device(db.device):
         stream = torch.cuda.current_stream(db.device).cuda_stream
         err = fwd(queries.data_ptr(), db.data_ptr(), vals.data_ptr(),
-                  slots.data_ptr(), out.data_ptr(), den.data_ptr(), g, q, n, c,
-                  slots.shape[1], _prescale(temp), int(exp_dtype == "bfloat16"),
-                  stream)
+                  slots.data_ptr(), out.data_ptr(), den.data_ptr(), count, g,
+                  q, n, c, slots.shape[1], _prescale(temp),
+                  int(exp_dtype == "bfloat16"), stream)
     if err != 0:
         raise RuntimeError(f"softmax_interp_fwd kernel failed: cudaError_t {err}")
     softmax_interp_fwd.launches += 1
@@ -253,31 +526,36 @@ def softmax_interp_fwd(queries: torch.Tensor, db: torch.Tensor,
 
 def softmax_interp_bwd(queries: torch.Tensor, db: torch.Tensor,
                        gs: torch.Tensor, temp: float, slots: torch.Tensor,
-                       exp_dtype: str = "float32") -> torch.Tensor:
+                       exp_dtype: str = "float32",
+                       pairs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """d vals [G, N, C] for the scaled cotangent gs [G, Q, C] =
     g_out / max(den, 1e-30).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises.
+    on the current stream or raises.  `pairs` as in `softmax_interp_fwd`.
     """
     _check(queries, db, gs, slots, exp_dtype)
     if gs.shape[1] != queries.shape[0]:
         raise ValueError(f"gs must be [G, Q={queries.shape[0]}, C], got "
                          f"{tuple(gs.shape)}")
     if db.device.type != "cuda":
+        if pairs is not None:
+            raise ValueError("pairs counts a kernel's work: CUDA tensors only")
         return softmax_interp_bwd_plain(queries, db, gs, temp, slots,
                                         exp_dtype)
     queries, db, gs, slots = _kernel_args(queries, db, gs, slots)
     g, q, c = gs.shape
     n = db.shape[1]
     dvals = torch.empty(g, n, c, dtype=torch.float32, device=db.device)
-    _, bwd = _kernels()
+    count = _pairs_ptr(pairs, db.device)
+    _, bwd, _ = _kernels()
+    _setup(db.device.index)
     with torch.cuda.device(db.device):
         stream = torch.cuda.current_stream(db.device).cuda_stream
         err = bwd(queries.data_ptr(), db.data_ptr(), gs.data_ptr(),
-                  slots.data_ptr(), dvals.data_ptr(), g, q, n, c,
-                  slots.shape[1], _prescale(temp), int(exp_dtype == "bfloat16"),
-                  stream)
+                  slots.data_ptr(), dvals.data_ptr(), count, g, q, n, c,
+                  slots.shape[1], _prescale(temp),
+                  int(exp_dtype == "bfloat16"), stream)
     if err != 0:
         raise RuntimeError(f"softmax_interp_bwd kernel failed: cudaError_t {err}")
     softmax_interp_bwd.launches += 1

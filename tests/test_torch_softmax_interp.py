@@ -261,10 +261,100 @@ def test_focus_config_refusals():
         FocusLossConfig(knn_method="softmax", interp_exp_dtype="float16")
 
 
+def far_inputs(seed, g=3, c=2, disp=40.0, far=0.01):
+    """make_inputs with a share `far` of the db points thrown 1e5 px away
+    (a trajectory that left the image); returns the per-group band rows of
+    the others' displacement."""
+    q, db, vals, cot = make_inputs(seed, g=g, c=c, disp=disp)
+    rng = np.random.default_rng(seed + 1000)
+    away = rng.random(db.shape[:2]) < far
+    ydisp = np.where(away, 0.0, np.abs(db[..., 0] - q[None, :, 0]))
+    db[away] = 1e5
+    tail = 4.0 * np.sqrt(TEMP) + CELL
+    per_group = np.stack([ydisp.max(1) + tail, np.full(g, CELL),
+                          np.full(g, GW)], -1).astype(np.float32)
+    return q, db, vals, cot, per_group
+
+
+@pytest.mark.parametrize("exp_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["per_group", "none", "narrow"])
+def test_culled_twin_equals_plain(kind, exp_dtype):
+    # The kernels skip a pair when a lower bound of its prescaled squared
+    # distance reaches si.CUT.  Their partition, run in PyTorch on 1% far
+    # points and a last partial query block (Q = 2100), drops no nonzero
+    # weight, gives the plain versions' out, den and d vals bit for bit,
+    # computes at least the needed pairs and fewer than the scanned ones,
+    # and counts as cull_pairs does.
+    q, db, vals, cot, per_group = far_inputs(11)
+    band = {"per_group": torch.from_numpy(per_group), "none": (0.0, 0.0, 0.0),
+            "narrow": (4.0, CELL, float(GW))}[kind]
+    qt, dbt = torch.from_numpy(q), torch.from_numpy(db)
+    vt, gt = torch.from_numpy(vals), torch.from_numpy(cot)
+    slots = si.scan_slots(qt, band, db.shape[0], q.shape[0])
+    out, den, dv, pairs = si.softmax_interp_culled_plain(
+        qt, dbt, vt, gt, TEMP, slots, exp_dtype)
+    out_p, den_p = si.softmax_interp_fwd_plain(qt, dbt, vt, TEMP, slots,
+                                               exp_dtype)
+    dv_p = si.softmax_interp_bwd_plain(qt, dbt, gt, TEMP, slots, exp_dtype)
+    assert torch.equal(out, out_p) and torch.equal(den, den_p)
+    assert torch.equal(dv, dv_p)
+    assert pairs["dropped"] == 0
+    assert pairs["needed"] <= pairs["computed_fwd"] < pairs["scanned"]
+    assert pairs["needed"] <= pairs["computed_bwd"] < pairs["scanned"]
+    assert si.cull_pairs(qt, dbt, slots, TEMP, exp_dtype) == {
+        k: pairs[k] for k in ("scanned", "needed", "computed_fwd",
+                              "computed_bwd")}
+
+
+@pytest.mark.parametrize("exp_dtype", ["float32", "bfloat16"])
+def test_culled_twin_around_the_cut(exp_dtype):
+    # One query against points at prescaled squared distances 120 to 160:
+    # every weight from si.CUT - 1 on is 0, so the cut at si.CUT drops only
+    # zeros; the twin computes every pair below the cut and equals plain.
+    rscale = si._prescale(TEMP)
+    d2 = np.arange(120 * 16, 160 * 16) / 16.0
+    q = np.zeros((1, 2), np.float32)
+    db = np.zeros((d2.size, 1, 2), np.float32)
+    db[:, 0, 1] = np.sqrt(d2) / rscale
+    ones = torch.ones(d2.size, 1, 1)
+    qt, dbt = torch.from_numpy(q), torch.from_numpy(db)
+    slots = si.scan_slots(qt, (0.0, 0.0, 0.0), d2.size, 1)
+    _, den, dv, pairs = si.softmax_interp_culled_plain(
+        qt, dbt, ones, ones, TEMP, slots, exp_dtype)
+    _, den_p = si.softmax_interp_fwd_plain(qt, dbt, ones, TEMP, slots,
+                                           exp_dtype)
+    got = (dbt[:, 0, 1].double() * rscale) ** 2
+    assert torch.equal(den, den_p) and torch.equal(dv[:, 0, 0], den[:, 0])
+    assert not bool((den[:, 0] != 0)[got >= si.CUT - 1].any())
+    assert bool((den[:, 0] != 0).any()) and pairs["dropped"] == 0
+    xs = dbt[:, 0, 1] * rscale
+    assert pairs["computed_fwd"] == pairs["computed_bwd"] == int(
+        (xs * xs < si.CUT).sum())
+
+
+def test_pairs_counter_refused_on_cpu():
+    # Counting the pairs computed is a kernel's business: the plain versions
+    # that CPU tensors run refuse a counter rather than ignore it.
+    q, db, vals, cot = make_inputs(5, g=2)
+    qt, dbt = torch.from_numpy(q), torch.from_numpy(db)
+    vt, ct = torch.from_numpy(vals), torch.from_numpy(cot)
+    slots = si.scan_slots(qt, (0.0, 0.0, 0.0), 2, qt.shape[0])
+    pairs = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        si.softmax_interp_fwd(qt, dbt, vt, TEMP, slots, pairs=pairs)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        si.softmax_interp_bwd(qt, dbt, ct, TEMP, slots, pairs=pairs)
+    assert int(pairs) == 0
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """The CUDA kernels against their plain versions on the card, for the
-    full scan, a narrow band and per-group rows, f32 and bf16.
+    full scan, a narrow band and per-group rows, f32 and bf16, on inputs
+    with and without 1% far points (C = 2 and 3: rows of 4 and 6 floats);
+    the backward gives the same bits in two calls, and the kernels' counting
+    build gives the same values and computes the pairs that the partition's
+    twin (cull_pairs) counts.
 
     f32 within 1e-5 of max |vals| (forward) and of the largest d vals: the
     same weights, summed in another order and with fused multiply-adds,
@@ -273,28 +363,47 @@ def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, db, vals, cot = make_inputs(7, g=3, c=2, disp=120.0)
-    qt, dbt = torch.from_numpy(q).cuda(), torch.from_numpy(db).cuda()
-    vt, ct = torch.from_numpy(vals).cuda(), torch.from_numpy(cot).cuda()
-    for band in ((0.0, 0.0, 0.0), (4.0, CELL, float(GW)),
-                 torch.from_numpy(bands("per_group", db, 3))):
-        slots = si.scan_slots(qt, band, 3, qt.shape[0])
-        for exp_dtype, tol in (("float32", 1e-5), ("bfloat16", 1e-2)):
-            before = (si.softmax_interp_fwd.launches,
-                      si.softmax_interp_bwd.launches)
-            out, den = si.softmax_interp_fwd(qt, dbt, vt, TEMP, slots,
-                                             exp_dtype)
-            gs = ct / torch.clamp(den, min=1e-30)[..., None]
-            dv = si.softmax_interp_bwd(qt, dbt, gs, TEMP, slots, exp_dtype)
-            torch.cuda.synchronize()
-            assert (si.softmax_interp_fwd.launches,
-                    si.softmax_interp_bwd.launches) == (before[0] + 1,
-                                                        before[1] + 1)
-            out_p, den_p = si.softmax_interp_fwd_plain(qt, dbt, vt, TEMP,
-                                                       slots, exp_dtype)
-            dv_p = si.softmax_interp_bwd_plain(qt, dbt, gs, TEMP, slots,
-                                               exp_dtype)
-            torch.testing.assert_close(out, out_p, rtol=0,
-                                       atol=tol * float(vt.abs().max()))
-            torch.testing.assert_close(den, den_p, rtol=tol, atol=1e-30)
-            torch.testing.assert_close(dv, dv_p, rtol=0,
-                                       atol=tol * float(dv_p.abs().max()))
+    qf, dbf, valsf, cotf, per_group_f = far_inputs(8, c=3)
+    for q, db, vals, cot, per_group in (
+            (q, db, vals, cot, bands("per_group", db, 3)),
+            (qf, dbf, valsf, cotf, per_group_f)):
+        qt, dbt = torch.from_numpy(q).cuda(), torch.from_numpy(db).cuda()
+        vt, ct = torch.from_numpy(vals).cuda(), torch.from_numpy(cot).cuda()
+        for band in ((0.0, 0.0, 0.0), (4.0, CELL, float(GW)),
+                     torch.from_numpy(per_group)):
+            slots = si.scan_slots(qt, band, 3, qt.shape[0])
+            for exp_dtype, tol in (("float32", 1e-5), ("bfloat16", 1e-2)):
+                before = (si.softmax_interp_fwd.launches,
+                          si.softmax_interp_bwd.launches)
+                out, den = si.softmax_interp_fwd(qt, dbt, vt, TEMP, slots,
+                                                 exp_dtype)
+                gs = ct / torch.clamp(den, min=1e-30)[..., None]
+                dv = si.softmax_interp_bwd(qt, dbt, gs, TEMP, slots,
+                                           exp_dtype)
+                torch.cuda.synchronize()
+                assert (si.softmax_interp_fwd.launches,
+                        si.softmax_interp_bwd.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+                again = si.softmax_interp_bwd(qt, dbt, gs, TEMP, slots,
+                                              exp_dtype)
+                assert torch.equal(dv.view(torch.int32),
+                                   again.view(torch.int32))
+                out_p, den_p = si.softmax_interp_fwd_plain(
+                    qt, dbt, vt, TEMP, slots, exp_dtype)
+                dv_p = si.softmax_interp_bwd_plain(qt, dbt, gs, TEMP, slots,
+                                                   exp_dtype)
+                torch.testing.assert_close(out, out_p, rtol=0,
+                                           atol=tol * float(vt.abs().max()))
+                torch.testing.assert_close(den, den_p, rtol=tol, atol=1e-30)
+                torch.testing.assert_close(dv, dv_p, rtol=0,
+                                           atol=tol * float(dv_p.abs().max()))
+                counts = torch.zeros(2, 1, dtype=torch.int64, device="cuda")
+                c_out, c_den = si.softmax_interp_fwd(
+                    qt, dbt, vt, TEMP, slots, exp_dtype, pairs=counts[0])
+                c_dv = si.softmax_interp_bwd(qt, dbt, gs, TEMP, slots,
+                                             exp_dtype, pairs=counts[1])
+                assert torch.equal(c_out, out) and torch.equal(c_den, den)
+                assert torch.equal(c_dv, dv)
+                twin = si.cull_pairs(qt, dbt, slots, TEMP, exp_dtype)
+                assert counts.view(-1).tolist() == [twin["computed_fwd"],
+                                                    twin["computed_bwd"]]
