@@ -864,9 +864,22 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
 
     # Vote (rows 3 and 4): the sorted half as the path votes it, the same
     # events in random order, skewed, and with a wide flow (vote_cases);
-    # the backward on the first two.
+    # the backward on all four, then on the unsorted events with the
+    # cotangent as the path hands it over.
     for name in ("iwe_vote_fwd", "iwe_vote_bwd"):
         out[name] = {}
+    same_bits = {}
+
+    def vote_bwd_check(label, c, v, g):
+        # d coords against plain; the bits of two calls compared.
+        k_dc, _ = iv.iwe_vote_bwd(c, v, g, h, w, need_dweight=False)
+        again, _ = iv.iwe_vote_bwd(c, v, g, h, w, need_dweight=False)
+        same_bits[label] = torch.equal(k_dc.view(torch.int32),
+                                       again.view(torch.int32))
+        p_dc, _ = iv.iwe_vote_bwd_plain(c, v, g, h, w, need_dweight=False)
+        return check_close(f"iwe_vote_bwd {label}", k_dc, p_dc,
+                           TOL_VOTE_BWD)
+
     for label, (c, v) in cases.items():
         nnz = int((v != 0).sum())
         fwd_bytes = b * npos * 4 + nnz * 8 + b * h * w * 4
@@ -883,6 +896,13 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
                           card=True)
         print(f"[flow-timing] iwe_vote_fwd {label}: card time "
               f"{card_ms * 1e3:.1f} us")
+        e_b = vote_bwd_check(label, c, v, gimg)
+        bwd_card_ms = time_ms(
+            torch, lambda: iv.iwe_vote_bwd(c, v, gimg, h, w,
+                                           need_dweight=False),
+            flush, card=True)
+        print(f"[flow-timing] iwe_vote_bwd {label}: card time "
+              f"{bwd_card_ms * 1e3:.1f} us")
         if label in ("skewed", "wide"):
             k_ms = time_ms(torch, lambda: iv.iwe_vote_fwd(c, v, h, w), flush)
             print(f"[flow-timing] iwe_vote_fwd {label}: kernel="
@@ -892,11 +912,16 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
                 f"{label}_ms": k_ms, f"{label}_card_ms": card_ms,
                 f"{label}_bound_ms": fwd_bytes / H100_BYTES_PER_S * 1e3,
                 f"{label}_max_abs_err": e_f, f"{label}_band_share": share})
+            k_ms = time_ms(torch, lambda: iv.iwe_vote_bwd(
+                c, v, gimg, h, w, need_dweight=False), flush)
+            print(f"[flow-timing] iwe_vote_bwd {label}: kernel="
+                  f"{k_ms * 1e3:.1f} us bound="
+                  f"{bwd_bytes / H100_BYTES_PER_S * 1e6:.1f} us")
+            out["iwe_vote_bwd"].update({
+                f"{label}_ms": k_ms, f"{label}_card_ms": bwd_card_ms,
+                f"{label}_bound_ms": bwd_bytes / H100_BYTES_PER_S * 1e3,
+                f"{label}_max_abs_err": e_b})
             continue
-        k_dc, _ = iv.iwe_vote_bwd(c, v, gimg, h, w, need_dweight=False)
-        p_dc, _ = iv.iwe_vote_bwd_plain(c, v, gimg, h, w, need_dweight=False)
-        e_b = check_close(f"iwe_vote_bwd {label}", k_dc, p_dc, TOL_VOTE_BWD)
-        del k_dc, p_dc
         # The library yardstick: one index_put_(accumulate=True) of the
         # precomputed corner indices and values.
         y1, x1, corners = iv._taps(c, h, w)
@@ -921,6 +946,7 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
             None, flush, bwd_bytes)
         del idx, val, img
         f.update(card_ms=card_ms, band_share=share)
+        bw.update(card_ms=bwd_card_ms)
         for name, nums, err in (("iwe_vote_fwd", f, e_f),
                                 ("iwe_vote_bwd", bw, e_b)):
             if label == "sorted":
@@ -929,6 +955,25 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
                 out[name].update({f"unsorted_{k}": x for k, x in nums.items()
                                   if k not in ("bound_ms", "bound_by")},
                                  unsorted_max_abs_err=err)
+    # The unsorted events' backward with the cotangent as autograd hands
+    # it to each polarity half of make_iwes' stack: select(1, 0) of a
+    # [B, 2, H, W] tensor, a batch stride of 2 H W, read where it lies.
+    c, v = cases["unsorted"]
+    gsel = torch.randn(b, 2, h, w, device="cuda").select(1, 0)
+    e_s = vote_bwd_check("unsorted_strided", c, v, gsel)
+    s_card_ms = time_ms(torch, lambda: iv.iwe_vote_bwd(
+        c, v, gsel, h, w, need_dweight=False), flush, card=True)
+    print(f"[flow-timing] iwe_vote_bwd unsorted_strided: card time "
+          f"{s_card_ms * 1e3:.1f} us")
+    out["iwe_vote_bwd"].update(unsorted_strided_card_ms=s_card_ms,
+                               unsorted_strided_max_abs_err=e_s)
+    del c, v, gsel
+    differ = [k for k, same in same_bits.items() if not same]
+    print(f"[flow-kernel-vs-plain] iwe_vote_bwd: two calls differ in bits "
+          f"on {len(differ)} of {len(same_bits)} cases {differ}")
+    if differ:
+        fail(f"iwe_vote_bwd: two calls gave different bits on {differ}")
+    out["iwe_vote_bwd"]["deterministic"] = not differ
     del cases, gimg
     torch.cuda.empty_cache()
 
@@ -1781,6 +1826,9 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
             print(f"[{tag}]   port kernel {e.key[:60]}: "
                   f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
                   f"launches")
+    copies = [e for e in kernels if "copy" in e.key.lower()]
+    print(f"[{tag}]   copy kernels: {sum(e.count for e in copies)} launches, "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms")
 
 
 def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
@@ -3040,7 +3088,7 @@ FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
     "iwe_vote_bwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
-                     "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:411"),
+                     "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:197,411"),
     "lut_gather_fwd": ("motionpriorcmax_tpu_torch/csrc/lut_gather.cu",
                        "motionpriorcmax_tpu/ops/pallas/lut_gather.py:173"),
     "lut_segsum_bwd": ("motionpriorcmax_tpu_torch/csrc/lut_gather.cu",
@@ -3065,8 +3113,16 @@ FLOW_WORK = {
                     "*band_share: the live taps voted through the "
                     "shared-memory band; *card_ms: the card's time alone, "
                     "the host's enqueue covered by a spin)",
-    "iwe_vote_bwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted, "
-                    "no weight gradient (unsorted_*: random order)",
+    "iwe_vote_bwd": "one polarity half: B=14, M=2^19, 480x640, cell-sorted "
+                    "(row 3, JAX :411), no weight gradient, a contiguous "
+                    "random cotangent (unsorted_*: the same events in "
+                    "random order, row 4, JAX :197; skewed_* and wide_*: "
+                    "as the forward's; unsorted_strided_*: the unsorted "
+                    "events with the cotangent a select(1, 0) of a "
+                    "[B, 2, H, W] tensor, as autograd hands it over; "
+                    "*card_ms: the card's time alone, the host's enqueue "
+                    "covered by a spin; deterministic: two calls gave the "
+                    "same bits in all five cases)",
     "lut_gather_fwd": "B=14, M=2^20, LUT [1800, 160, 2] f32",
     "lut_segsum_bwd": "B=14, M=2^20, S=2 x 288,000 cells, C=2, the path's "
                       "cell-sorted batch (skewed_*: half the live events "

@@ -1,8 +1,8 @@
 """Time kernels of two or more checkouts of the PyTorch port on one card,
 under the same timers, in one call: the corr-window lookup (kernel row 1),
-the voxel vote (kernel row 8), the IWE vote's forward (rows 3 and 4), the
-LUT gather's two backwards (rows 6 and 5) and the softmax interpolation
-(row 7).
+the voxel vote (kernel row 8), the IWE vote's forward and backward (rows 3
+and 4), the LUT gather's two backwards (rows 6 and 5) and the softmax
+interpolation (row 7).
 
     python3 kernel_ab.py parent=path/to/other/checkout change=. \
         --order parent,change,change,parent
@@ -46,6 +46,14 @@ each call, these sections:
                and "band_share" is the share of live taps that the
                forward's plain twin votes through its shared-memory band
                (null for a checkout without the twin);
+  iwe_vote_bwd `iwe_vote_bwd` (d coords only, as the focus loss asks) on
+               the same four cases for a seeded random image cotangent,
+               and "unsorted_strided": the unsorted case with the
+               cotangent passed as the path passes it, `select(1, 0)` of
+               a [B, 2, H, W] tensor (a batch stride of 2 H W); fails
+               the run above chip_smoke.py's TOL_VOTE_BWD (relative to
+               max(1, max |plain|)) or when two calls differ in a bit;
+               "digest" as in `softmax`, of d coords;
   softmax      `softmax_interp_fwd` and `softmax_interp_bwd` on
                chip_smoke.softmax_cases: "flow" (the flow-train softmax
                step's G=210, Q=N=19,200, C=2, per-bin band, 1% far
@@ -98,8 +106,9 @@ import functools
 
 from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS,
                         TOL_SEGMENT_SUM, TOL_SEGSUM, TOL_SOFTMAX,
-                        TOL_VOTE_FWD, W, level_inputs, nvidia_smi_line,
-                        segment_sum_cases, segsum_cases, softmax_cases,
+                        TOL_VOTE_BWD, TOL_VOTE_FWD, W, level_inputs,
+                        nvidia_smi_line, segment_sum_cases, segsum_cases,
+                        softmax_cases,
                         softmax_loss_cfgs, vote_band_share, vote_batch,
                         vote_cases)
 
@@ -293,19 +302,56 @@ def run_iwe_vote(torch, flush):
     return out
 
 
-def run_softmax(torch, flush):
+def digest(t):
+    """SHA-1 of t's bytes; + 0.0 makes -0 into +0 (a skipped zero term may
+    flip a zero's sign)."""
     import hashlib
 
+    return hashlib.sha1((t + 0.0).contiguous().cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def rel_err(got, want):
+    return (float((got - want).abs().max())
+            / max(1.0, float(want.abs().max())))
+
+
+def run_iwe_vote_bwd(torch, flush):
+    from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
+
+    batch, loss_cfg = host_batch()
+    h, w = loss_cfg.image_shape
+    cases = vote_cases(torch, batch, h, w, loss_cfg.num_bins,
+                       loss_cfg.lut_superpixel_size)
+    b = cases["sorted"][1].shape[0]
+    g = torch.Generator(device="cuda").manual_seed(25)
+    gimg = torch.randn(b, h, w, device="cuda", generator=g)
+    giwes = torch.randn(b, 2, h, w, device="cuda", generator=g)
+    runs = [(label, c, v, gimg) for label, (c, v) in cases.items()]
+    runs.append(("unsorted_strided", *cases["unsorted"], giwes.select(1, 0)))
+    out = {}
+    for label, c, v, gr in runs:
+        got, _ = iv.iwe_vote_bwd(c, v, gr, h, w, need_dweight=False)
+        again, _ = iv.iwe_vote_bwd(c, v, gr, h, w, need_dweight=False)
+        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        want, _ = iv.iwe_vote_bwd_plain(c, v, gr, h, w, need_dweight=False)
+        err = rel_err(got, want)
+        del again, want
+        if not (err <= TOL_VOTE_BWD and same):
+            raise SystemExit(f"kernel_ab: iwe_vote_bwd {label}: error "
+                             f"{err:.3e} (bound {TOL_VOTE_BWD:g}), two calls "
+                             f"{'agree' if same else 'differ'} in bits")
+        ms, card_ms, host_us = timers(
+            torch, lambda: iv.iwe_vote_bwd(c, v, gr, h, w, need_dweight=False),
+            flush)
+        out[label] = {"ms": ms, "card_ms": card_ms, "host_us": host_us,
+                      "max_rel_err": err, "digest": digest(got)}
+        del got
+    return out
+
+
+def run_softmax(torch, flush):
     from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
-
-    def digest(t):
-        # + 0.0 makes -0 into +0: a skipped zero term may flip a zero's sign.
-        return hashlib.sha1((t + 0.0).contiguous().cpu().numpy().tobytes()
-                            ).hexdigest()
-
-    def rel_err(got, want):
-        return (float((got - want).abs().max())
-                / max(1.0, float(want.abs().max())))
 
     out = {}
     for label, (queries, db, vals, slots, temp) in softmax_cases(
@@ -408,11 +454,14 @@ def staging() -> None:
 
 
 SECTIONS = {"lookup": run_lookup, "voxel_vote": run_vote,
-            "iwe_vote": run_iwe_vote, "segsum": run_segsum,
+            "iwe_vote": run_iwe_vote, "iwe_vote_bwd": run_iwe_vote_bwd,
+            "segsum": run_segsum,
             "segment_sum": run_segment_sum, "softmax": run_softmax}
 # The cases of each section, in the order of the table.
 CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
          "iwe_vote": ("sorted", "unsorted", "skewed", "wide"),
+         "iwe_vote_bwd": ("sorted", "unsorted", "skewed", "wide",
+                          "unsorted_strided"),
          "segsum": ("sorted", "skewed", "traj"),
          "segment_sum": ("path", "skewed", "traj")}
 
@@ -481,9 +530,11 @@ def main() -> int:
         print(line, flush=True)
         results.append(json.loads(line))
     def cell(c):
-        return f"{c['ms'] * 1e3:.1f}/{c['card_ms'] * 1e3:.1f}/{c['host_us']:.0f}"
+        dg = f" {c['digest'][:8]}" if "digest" in c else ""
+        return (f"{c['ms'] * 1e3:.1f}/{c['card_ms'] * 1e3:.1f}/"
+                f"{c['host_us']:.0f}{dg}")
 
-    print("each: ms / card_ms in us / host_us")
+    print("each: ms / card_ms in us / host_us (/ digest)")
     for r in results:
         parts = []
         if "lookup" in r:

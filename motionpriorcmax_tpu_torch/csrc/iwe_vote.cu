@@ -26,8 +26,9 @@
 // 17 MB image written once: ~31 us at 3.35 TB/s.  The image fits in the
 // 50 MB L2, so a design with one f32 atomic per tap (26.6 M per launch at
 // that shape) runs at the L2's atomic rate, ~1e11 atomics/s: ~270 us.
-// Backward, per event 12 bytes in, four 4-byte image reads (L2-resident)
-// and 8 (+4 for d weight) bytes out, no atomics: deterministic.
+// Backward, per event 12 bytes in (the coordinates of live events only)
+// and 8 (+4 for d weight) bytes out, and the image read once: 161 MB at
+// that shape, ~48 us.  No atomics: deterministic.
 //
 // Forward design: one launch; a block of 1024 threads takes a chunk of
 // 4096 consecutive events of one batch row (4 per thread, held in
@@ -77,6 +78,22 @@
 // spread over the whole image, and chunks with a wide flow over more rows
 // than the band holds: they take (a) alone.  Sums are in run-dependent
 // order, as with any atomics.
+//
+// Backward design: one thread per event, four 4-byte reads of its taps,
+// the cotangent image read where it lies (any batch stride: autograd hands
+// each polarity half a view into the stacked [B, 2, H, W] cotangent).  On
+// cell-sorted events a warp's taps share lines and its reads hit the L1.
+// In any order each tap row is a line of its own: a row's two reads merge
+// in the L1, and the L2 serves ~2.25 sector requests per event (2 rows,
+// 1/8 of the pairs across two sectors) besides the stream of coords,
+// weights and d coords that it carries too.  The two add up rather than
+// overlap: the unsorted call takes ~2.7x the bound.  Measured on the card
+// and not kept (25 variants, PERF.md, section 6): several events per
+// thread, a tap row's pair as one 16-byte load, a persistent grid, the
+// image in a cluster's distributed shared memory, and a cooperative launch
+// that lays the image out as row pairs (an event's taps in one 16-byte
+// read) after a vote of the warps; none was faster on events in any order
+// without being slower on cell-sorted or skewed ones.
 //
 // Coordinates are clamped before the float-to-int cast to [-3, size + 2]:
 // every tap of a clamped coordinate is still out of the image, as every tap
@@ -363,7 +380,8 @@ iwe_vote_bwd_kernel(const float* __restrict__ coords,
                     float* __restrict__ dcoords,
                     float* __restrict__ dweight,     // may be null
                     long long n_events, int m, long long coords_bstride,
-                    long long weight_bstride, int h, int w) {
+                    long long weight_bstride, long long grad_bstride, int h,
+                    int w) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_events) return;
   const long long b = i / m;
@@ -377,7 +395,7 @@ iwe_vote_bwd_kernel(const float* __restrict__ coords,
   const float2 yx = __ldg(reinterpret_cast<const float2*>(
       coords + b * coords_bstride + 2 * e));
   const Taps t = make_taps(yx.x, yx.y, h, w);
-  const float* g = grad + b * (long long)h * w + (long long)t.y1 * w + t.x1;
+  const float* g = grad + b * grad_bstride + (long long)t.y1 * w + t.x1;
   const float g00 = t.m00 ? __ldg(g) : 0.0f;
   const float g10 = t.m10 ? __ldg(g + w) : 0.0f;
   const float g01 = t.m01 ? __ldg(g + 1) : 0.0f;
@@ -422,17 +440,18 @@ int iwe_vote_fwd(const float* coords, const float* weight, float* out,
 // Events per forward block: the chunk of the banded plain twin.
 int iwe_vote_fwd_chunk(void) { return kChunk; }
 
-// grad [B, H, W] f32 contiguous; dcoords [B, M, 2] and dweight [B, M]
-// (or null) contiguous outputs.
+// grad: B images of H x W f32, each contiguous, image b at
+// grad + b * grad_bstride; dcoords [B, M, 2] and dweight [B, M] (or null)
+// contiguous outputs.
 int iwe_vote_bwd(const float* coords, const float* weight, const float* grad,
                  float* dcoords, float* dweight, int batch, int m,
-                 long long coords_bstride, long long weight_bstride, int h,
-                 int w, void* stream) {
+                 long long coords_bstride, long long weight_bstride,
+                 long long grad_bstride, int h, int w, void* stream) {
   const long long n = (long long)batch * m;
   if (n == 0) return 0;
   iwe_vote_bwd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       coords, weight, grad, dcoords, dweight, n, m, coords_bstride,
-      weight_bstride, h, w);
+      weight_bstride, grad_bstride, h, w);
   return (int)cudaGetLastError();
 }
 

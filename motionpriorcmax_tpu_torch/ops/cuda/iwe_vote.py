@@ -217,8 +217,18 @@ def _kernels():
     fwd.argtypes = [p, p, p, i, i, ll, ll, i, i, i, p]
     bwd = lib.iwe_vote_bwd
     bwd.restype = i
-    bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, i, i, p]
+    bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, ll, i, i, p]
     return fwd, bwd
+
+
+def _grad_layout(grad: torch.Tensor, height: int, width: int):
+    """(cotangent, batch stride) as the backward kernel reads it: each
+    [H, W] image contiguous, any batch stride (a `select(1, k)` of a
+    [B, 2, H, W] cotangent is read where it lies).  A cotangent whose
+    images are not each contiguous is copied."""
+    if grad.stride(2) != 1 or grad.stride(1) != width:
+        grad = grad.contiguous()
+    return grad, grad.stride(0)
 
 
 def _kernel_layout(coords: torch.Tensor, weight: torch.Tensor):
@@ -267,7 +277,11 @@ def iwe_vote_bwd(coords: torch.Tensor, weight: torch.Tensor,
     """(d coords [B, M, 2], d weight [B, M] or None) for grad [B, H, W].
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises.
+    on the current stream or raises.  The kernel reads grad where it lies
+    when each [H, W] image is contiguous, at any batch stride: autograd
+    hands each polarity half of `make_iwes`' stack the view select(1, k)
+    of the [B, 2, H, W] cotangent.  Only a grad whose images are not each
+    contiguous is copied.
     """
     _check(coords, weight)
     bsz, m = weight.shape
@@ -277,8 +291,10 @@ def iwe_vote_bwd(coords: torch.Tensor, weight: torch.Tensor,
     if coords.device.type != "cuda":
         return iwe_vote_bwd_plain(coords, weight, grad, height, width,
                                   need_dweight)
+    if grad.device != coords.device:
+        raise ValueError(f"grad on {grad.device}, coords on {coords.device}")
     cstride, wstride = _kernel_layout(coords, weight)
-    grad = grad.contiguous()
+    grad, gstride = _grad_layout(grad, height, width)
     dcoords = torch.empty(bsz, m, 2, dtype=torch.float32, device=coords.device)
     dweight = (torch.empty(bsz, m, dtype=torch.float32, device=coords.device)
                if need_dweight else None)
@@ -288,7 +304,7 @@ def iwe_vote_bwd(coords: torch.Tensor, weight: torch.Tensor,
         err = bwd(coords.data_ptr(), weight.data_ptr(), grad.data_ptr(),
                   dcoords.data_ptr(),
                   dweight.data_ptr() if dweight is not None else None,
-                  bsz, m, cstride, wstride, height, width, stream)
+                  bsz, m, cstride, wstride, gstride, height, width, stream)
     if err != 0:
         raise RuntimeError(f"iwe_vote_bwd kernel failed: cudaError_t {err}")
     iwe_vote_bwd.launches += 1

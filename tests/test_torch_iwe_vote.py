@@ -11,6 +11,8 @@ the card:
     python -m pytest --noconftest -m cuda tests/test_torch_iwe_vote.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,8 @@ try:
     from motionpriorcmax_tpu.ops.events import iwe_bilinear_vote
     from motionpriorcmax_tpu.ops.pallas.iwe_vote import (
         BE, KB, iwe_vote_pallas, iwe_vote_pallas_sorted)
+    from motionpriorcmax_tpu.losses import FocusLossConfig as JaxFocusCfg
+    from motionpriorcmax_tpu.losses.focus import make_iwes as jax_make_iwes
 except ImportError:         # the GPU machine: only the cuda test runs there
     jax = None
 
@@ -150,6 +154,146 @@ def test_vote_plain_matches_pallas_interpret(sort):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-2 * np.abs(b).max())
 
 
+# Backward edge cases, held against the JAX vote's autodiff here and
+# against the plain version on the card (check_bwd_layouts_on_card): a tap
+# pair's first column even or odd, pairs on the left and right edges
+# (x1 = -1 and x1 = W - 1), on the top and bottom rows (y1 = -1 and
+# y1 = H - 1), widths that are not a multiple of 4, and zero weights.
+BWD_CASES = ("x1_even", "x1_odd", "edges", "rows", "w57", "w61",
+             "zero_weight")
+
+
+def bwd_case(name, b=2, m=777, h=H, w=W, seed=30):
+    """(coords, weight, h, w) of a backward case."""
+    rng = np.random.default_rng(seed + BWD_CASES.index(name))
+    w = {"w57": 57, "w61": 61}.get(name, w)
+    y = rng.uniform(0, h - 1, (b, m))              # both tap rows inside
+    x = rng.uniform(-2, w + 1, (b, m))
+    frac = rng.uniform(0.01, 0.99, (b, m))
+    if name in ("x1_even", "x1_odd"):
+        x = (rng.integers(0, (w - 1) // 2, (b, m)) * 2
+             + (name == "x1_odd") + frac)
+    if name == "edges":
+        x = rng.choice([-1, w - 1], (b, m)) + frac
+    if name == "rows":
+        y = rng.choice([-1, h - 1], (b, m)) + frac
+    if name in ("w57", "w61", "zero_weight"):
+        y = rng.uniform(-2, h + 1, (b, m))
+    coords = np.stack([y, x], -1).astype(np.float32)
+    wgt = rng.uniform(0.2, 2.0, (b, m)).astype(np.float32)
+    if name == "zero_weight":
+        wgt[:, ::2] = 0.0
+    return coords, wgt, h, w
+
+
+@pytest.mark.parametrize("name", BWD_CASES)
+def test_bwd_edge_cases_match_jax(name):
+    # The wrapper (its plain version on the CPU) against the JAX 'direct'
+    # vote's autodiff at the file's atol 1e-5, with and without d weight;
+    # the taps on the edges and rows outside the image read nothing.
+    coords, wgt, h, w = bwd_case(name)
+    g = np.random.default_rng(40).normal(size=(2, h, w)).astype(np.float32)
+    ct, vt, gt = (torch.from_numpy(a) for a in (coords, wgt, g))
+    dc_j, dw_j = jax.grad(lambda c, v: jnp.sum(jax_direct(c, v, h, w) * g),
+                          argnums=(0, 1))(jnp.asarray(coords),
+                                          jnp.asarray(wgt))
+    for need_dweight in (True, False):
+        dc, dw = iv.iwe_vote_bwd(ct, vt, gt, h, w, need_dweight)
+        np.testing.assert_allclose(dc.numpy(), np.asarray(dc_j), rtol=0,
+                                   atol=1e-5)
+        assert (dw is None) == (not need_dweight)
+        if need_dweight:
+            np.testing.assert_allclose(dw.numpy(), np.asarray(dw_j), rtol=0,
+                                       atol=1e-5)
+    if name == "zero_weight":
+        assert not dc[:, ::2].any()
+    else:
+        assert np.abs(np.asarray(dc_j)).max() > 0
+
+
+@functools.lru_cache(maxsize=None)
+def strided_case():
+    """Events whose second polarity half starts at an odd offset (301 of
+    901), a [B, 2, H, W] cotangent, and the JAX Pallas vote's VJP of each
+    half against its plane (f32 tiles, interpret mode)."""
+    coords, wgt = make_inputs(11, m=901)
+    giwes = np.random.default_rng(12).normal(size=(2, 2, H, W)).astype(
+        np.float32)
+    want = []
+    for k, (lo, hi) in enumerate(((0, 301), (301, 901))):
+        def loss(c, v, k=k):
+            return jnp.sum(iwe_vote_pallas(c, v, H, W, jnp.float32, True)
+                           * giwes[:, k])
+        dc, dw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(coords[:, lo:hi]),
+                                                jnp.asarray(wgt[:, lo:hi]))
+        want.append((lo, hi, np.asarray(dc), np.asarray(dw)))
+    return coords, wgt, giwes, want
+
+
+@pytest.mark.parametrize("need_dweight", [True, False])
+def test_bwd_takes_strided_cotangent_and_odd_half(need_dweight):
+    # autograd hands each polarity half of make_iwes' stack a select(1, k)
+    # of the [B, 2, H, W] cotangent, and the negative half of the events
+    # starts num_pos_events in (odd here): the wrapper takes both as they
+    # lie and gives the contiguous call's values.  atol 1e-5 against the
+    # Pallas VJP in f32: the same products, its sums in another order.
+    coords, wgt, giwes, want = strided_case()
+    ct, vt, gt = (torch.from_numpy(a) for a in (coords, wgt, giwes))
+    for k, (lo, hi, dc_j, dw_j) in enumerate(want):
+        c, v, g = ct[:, lo:hi], vt[:, lo:hi], gt.select(1, k)
+        assert not g.is_contiguous() and c.storage_offset() == 2 * lo
+        dc, dw = iv.iwe_vote_bwd(c, v, g, H, W, need_dweight)
+        dc0, dw0 = iv.iwe_vote_bwd(c.contiguous(), v.contiguous(),
+                                   g.contiguous(), H, W, need_dweight)
+        assert torch.equal(dc, dc0)
+        np.testing.assert_allclose(dc.numpy(), dc_j, rtol=0, atol=1e-5)
+        if need_dweight:
+            assert torch.equal(dw, dw0)
+            np.testing.assert_allclose(dw.numpy(), dw_j, rtol=0, atol=1e-5)
+        else:
+            assert dw is None and dw0 is None
+
+
+def test_make_iwes_grad_matches_jax():
+    # The autograd path of the focus loss: make_iwes votes the two
+    # polarity halves (the second at an odd event offset) and stacks them;
+    # the gradient of sum(iwes * G) with respect to the warped (y, x)
+    # matches the JAX make_iwes' at atol 1e-5 of its largest entry (f32
+    # votes and blur summed in another order).
+    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
+    from motionpriorcmax_tpu_torch.losses.focus import make_iwes
+
+    rng = np.random.default_rng(50)
+    b, m, npos = 2, 801, 401
+    ev = np.zeros((b, m, 6), np.float32)
+    ev[..., 0] = rng.uniform(0, H, (b, m))
+    ev[..., 1] = rng.uniform(0, W, (b, m))
+    ev[..., 2] = rng.uniform(0, 1, (b, m))
+    ev[:, :npos, 3] = 1.0
+    ev[..., 5] = (rng.random((b, m)) < 0.9).astype(np.float32)
+    warped_yx = (ev[:, None, :, :2]
+                 + rng.normal(0, 3, (b, 1, m, 2)).astype(np.float32))
+    g = rng.normal(size=(b, 2, H, W)).astype(np.float32)
+    t_ref = np.asarray([0.37], np.float32)
+    kw = dict(image_shape=(H, W), polarity_aware_batching=True)
+
+    def jloss(yx):
+        warped = jnp.concatenate(
+            [yx, jnp.broadcast_to(ev[:, None, :, 2:], (b, 1, m, 4))], -1)
+        return jnp.sum(jax_make_iwes(JaxFocusCfg(**kw), warped,
+                                     jnp.asarray(t_ref), npos) * g)
+
+    g_j = np.asarray(jax.grad(jloss)(jnp.asarray(warped_yx)))
+    yx = torch.from_numpy(warped_yx).requires_grad_()
+    iwes = make_iwes(FocusLossConfig(**kw), yx, torch.from_numpy(ev),
+                     torch.from_numpy(t_ref), npos)
+    assert iwes.shape == (b, 2, H, W)
+    (iwes * torch.from_numpy(g)).sum().backward()
+    assert np.abs(g_j).max() > 0
+    np.testing.assert_allclose(yx.grad.numpy(), g_j, rtol=0,
+                               atol=1e-5 * np.abs(g_j).max())
+
+
 # The forward kernel's partition (iwe_vote_banded_plain), case by case.
 # Every case is ragged (M not a multiple of the chunk) unless it says
 # otherwise, and has zero-weight padding at the end of each row.
@@ -246,6 +390,66 @@ def test_band_rows_fit_two_blocks_per_sm():
     assert iv.vote_band_rows(480, 640) * 644 * 4 <= iv.BAND_BYTES
 
 
+def skewed_inputs(seed, b=3, m=40011, h=480, w=640):
+    """Half the events in one 16 x 64 region and 1% on one pixel, the
+    rest anywhere, in random order."""
+    rng = np.random.default_rng(seed)
+    y, x = rng.uniform(-2, h + 1, (b, m)), rng.uniform(-2, w + 1, (b, m))
+    hot = rng.random((b, m)) < 0.5
+    y = np.where(hot, 200 + rng.uniform(0, 16, (b, m)), y)
+    x = np.where(hot, 300 + rng.uniform(0, 64, (b, m)), x)
+    pixel = rng.random((b, m)) < 0.01
+    y, x = np.where(pixel, 207.5, y), np.where(pixel, 331.25, x)
+    wgt = rng.uniform(0.2, 2.0, (b, m)).astype(np.float32)
+    wgt[:, -40:] = 0.0
+    return np.stack([y, x], -1).astype(np.float32), wgt, h, w
+
+
+def check_bwd_layouts_on_card():
+    """The backward kernel against its plain version on the layouts the
+    path and its edges give it: each polarity half of a [B, 2, H, W]
+    cotangent (a batch stride of 2 H W, read where it lies), coords and
+    weight views at an 8-byte but not 16-byte aligned start (1 event in),
+    the cases of BWD_CASES, a skewed batch, an 800 x 1024 image and
+    sorted events;
+    with and without d weight, the same bits in two calls and in the
+    contiguous call."""
+    cases = [bwd_case(name, b=3, m=20011) for name in BWD_CASES]
+    cases.append(skewed_inputs(9))
+    cases.append(bwd_case("x1_odd", b=3, m=20011, h=800, w=1024))
+    coords, wgt = make_inputs(10, b=3, m=20011, sort=True)
+    cases.append((coords, wgt, H, W))
+    for coords, wgt, h, w in cases:
+        ct = torch.from_numpy(coords).cuda()
+        vt = torch.from_numpy(wgt).cuda()
+        giwes = torch.from_numpy(np.random.default_rng(41).normal(
+            size=(3, 2, h, w)).astype(np.float32)).cuda()
+        for lo, k in ((0, 0), (1, 1)):
+            c, v, g = ct[:, lo:], vt[:, lo:], giwes.select(1, k)
+            assert (c.data_ptr() % 16 == 8) == (lo == 1)
+            for need_dweight in (True, False):
+                before = iv.iwe_vote_bwd.launches
+                dc, dw = iv.iwe_vote_bwd(c, v, g, h, w, need_dweight)
+                dc2, dw2 = iv.iwe_vote_bwd(c, v, g, h, w, need_dweight)
+                dc3, dw3 = iv.iwe_vote_bwd(c.contiguous(), v.contiguous(),
+                                           g.contiguous(), h, w, need_dweight)
+                torch.cuda.synchronize()
+                assert iv.iwe_vote_bwd.launches == before + 3
+                dc_p, dw_p = iv.iwe_vote_bwd_plain(c, v, g, h, w,
+                                                   need_dweight)
+                torch.testing.assert_close(dc, dc_p, rtol=1e-6, atol=1e-6)
+                assert torch.equal(dc.view(torch.int32), dc2.view(torch.int32))
+                assert torch.equal(dc.view(torch.int32), dc3.view(torch.int32))
+                if need_dweight:
+                    torch.testing.assert_close(dw, dw_p, rtol=1e-6, atol=1e-6)
+                    assert torch.equal(dw.view(torch.int32),
+                                       dw2.view(torch.int32))
+                    assert torch.equal(dw.view(torch.int32),
+                                       dw3.view(torch.int32))
+                else:
+                    assert dw is None and dw_p is None
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """The CUDA kernels against their plain versions on the card.
@@ -254,7 +458,8 @@ def test_kernels_match_plain_on_card():
     on every run.  Backward rtol 1e-6 + atol 1e-6: the same f32
     expressions and no atomics, but nvcc contracts the sums of products
     into fused multiply-adds, which round once instead of twice (a few
-    ulps of values up to ~10).  The forward also on the band cases at the
+    ulps of values up to ~10).  The backward also on the layouts of
+    check_bwd_layouts_on_card.  The forward also on the band cases at the
     flow-training size, where a band of 40 rows holds a sorted chunk's
     taps and not an unsorted or wide one's (W = 57 at H = 600: 449 rows)."""
     if not torch.cuda.is_available():
@@ -276,6 +481,7 @@ def test_kernels_match_plain_on_card():
         dc_p, dw_p = iv.iwe_vote_bwd_plain(c, v, gt, H, W)
         torch.testing.assert_close(dc, dc_p, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(dw, dw_p, rtol=1e-6, atol=1e-6)
+    check_bwd_layouts_on_card()
     for name in BAND_CASES:
         coords, wgt, h, w, halves = band_case(
             name, h=600 if name == "w57" else 480, w=640, m=60011,
