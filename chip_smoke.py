@@ -25,7 +25,7 @@ Phases, one or more lines each; any failure exits non-zero:
      + 3 synthetic B=8 384x512 requests: latency, samples/s, peak memory,
      kernel launches per request (12: one per refinement iteration),
      finite metrics, TF32 off inside every forward
-  6. where the time goes: CUDA events around the model's parts over 3 more
+  6. where the time goes: CUDA events around the model's parts over 2 more
      requests, then torch.profiler over one request (idle share)
   7. card vs CPU: the same weights and inputs through the port on the CPU
      (plain lookup) and on the card (kernel) at the small test geometry
@@ -51,13 +51,13 @@ Phases, one or more lines each; any failure exits non-zero:
      the card time alone of the vote forward on its four inputs and of
      the segment sum on its three
  11. training: train_flow (the CLI's loop) at full width with seeded
-     weights on 1 warm-up + 3 timed steps and one val pass with GT flow,
+     weights on 1 warm-up + 2 timed steps and one val pass with GT flow,
      checkpoint to a temporary directory: step ms, events/s, peak memory,
      kernel launches per step (2 + 2 vote, 1 + 1 gather), finite loss that
      changes, finite val EPE
  12. where the time goes: CUDA events around UNet forward, trajectories,
      KNN + interpolation, warp, vote + blur + objective, backward and
-     AdamW over 3 steps, then torch.profiler over one step (idle share)
+     AdamW over 2 steps, then torch.profiler over one step (idle share)
  13. card vs CPU: one f32 train_step at the test geometry, kernels on the
      card against plain versions on the CPU: loss, gradients, BN statistics
   flow-train with loss.knn_method: softmax and voxel grids built in the
@@ -86,7 +86,8 @@ Phases, one or more lines each; any failure exits non-zero:
      shapes (G=246, Q=N=12,288, C=4, per-group dynamic band)
  16. training: train_flow as in phase 11: launches per step 1 + 1 softmax,
      1 voxel vote and the 6 of phase 11; in the val pass 1 softmax forward
-     and 1 voxel vote; the step losses against the recorded ones
+     and 1 voxel vote; 1 warm-up + 3 timed steps, their four losses
+     against the recorded ones
  17. where the time goes, as phase 12, with "voxelize" and "softmax
      interpolation" spans
  18. card vs CPU: one f32 train_step of this configuration at the test
@@ -105,7 +106,7 @@ Phases, one or more lines each; any failure exits non-zero:
      at B=6
  21. training: train_traj (the traj-train CLI's loop) at full width with
      seeded weights on synthetic batches of 2^19 events per sample: 1
-     warm-up + 3 timed steps + 1 under torch.profiler (idle share), then a
+     warm-up + 2 timed steps + 1 under torch.profiler (idle share), then a
      validation pass and a checkpoint: step ms, events/s, peak memory,
      launches per step (12 + 48 corr-window, 2 + 2 vote, 1 + 1 gather), a
      finite loss that moves, context BatchNorm statistics that move, TF32
@@ -134,9 +135,9 @@ Phases, one or more lines each; any failure exits non-zero:
      nonzero, and with no padding
  27. training: train_flow on the unsorted batches: launches per step 1
      segment sum, 2 + 2 vote (row 4), 1 voxel vote, 1 + 1 softmax and no
-     LUT gather; TF32 off in the UNet's forward and backward; the step
-     losses against phase 16's recorded ones; the cell-sorted step of
-     phase 16 beside it
+     LUT gather; TF32 off in the UNet's forward and backward; the four
+     step losses against phase 16's recorded ones; the cell-sorted step
+     of phase 16 beside it
  28. where the time goes, as phase 17
  29. card vs CPU: one f32 unsorted train_step at the test geometry
  30. the JAX package's learning checks on the card, on unsorted events:
@@ -149,6 +150,37 @@ Phases, one or more lines each; any failure exits non-zero:
      for {cell-sorted, unsorted} x {host, device voxel}, each against the
      step that consumes it; one batch's collate with the NumPy twins in
      one thread and with the native ops on the pool
+  dsec-infer (DSEC benchmark inference, config/dsec_inference.yaml: B=1,
+  480x640, 15 bins, f32 UNet 64-1024, seeded weights):
+ 32. the voxel vote (row 8) against its plain version at the inference
+     shapes: B=1 with N = 0, 1, 4097 (not a multiple of the 4096-event
+     chunk), 2^20 and 3M events, fractional rectified coordinates, 4% on
+     the last row or column; at 2^20 and 3M its time (L2 flushed, and the
+     card's alone), its bytes bound (24 N + 4 x 15 x 480 x 640 at 3.35
+     TB/s), the plain version and index_add_ of the eight taps
+ 33. end to end at full width: the CLI's infer_sequence over an in-memory
+     sequence of 9 windows of 0.5-3M raw events (the arrays of an
+     events.h5, a synthetic rectify map, a timestamp CSV), read through
+     DsecSequence.__getitem__ (the native pack), 1 warm-up + 8 timed
+     windows: ms per window, windows/s, peak memory, 1 voxel-vote launch
+     per window, TF32 off inside the forward, every PNG read back (finite,
+     within the 60 px cap); then the parts of each window with the card
+     synchronized at each (CUDA events; the host clock for the pack and
+     the PNG), timed by wrapping the functions the CLI looks up by name,
+     and the 416 windows of the seven test CSVs, derived (printed only)
+ 34. card vs CPU: the same seeded weights at narrow widths and two
+     windows through infer_window on the CPU (plain) and the card (kernel)
+  flow-train's remaining configuration values (dsec.yaml's shapes, 1
+  warm-up + 1 timed step each):
+ 35. train_flow with loss.knn_method grid on phase 8's cell-sorted
+     host-voxel batch (the spatial-hash KNN, plain PyTorch; rows 3 and 6),
+     then card vs CPU at the test geometry
+ 36. train_flow with knn_method softmax and dist_norm l1 on the device-voxel
+     batch (the blockwise L1 interpolation, plain PyTorch; rows 3, 6 and
+     8), then card vs CPU
+ 37. one batch through the DataLoader with capacity buckets (2^19, 2^20)
+     from 14 windows of 300,000 events: 2^18 per polarity half, 2^19 in
+     all; train_flow's softmax / device-voxel step on it
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -156,6 +188,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -547,7 +580,7 @@ def phase_breakdown(torch, model, host_batch, ts):
         setattr(raft, name, wrap(name, originals[name]))
     try:
         request()                                            # warm-up
-        runs = [request() for _ in range(3)]
+        runs = [request() for _ in range(BREAKDOWN_RUNS)]
     finally:
         for name in wrapped:
             setattr(raft, name, originals[name])
@@ -555,7 +588,8 @@ def phase_breakdown(torch, model, host_batch, ts):
             h.remove()
     walls = [r[0] for r in runs]
     dev_ms = float(np.median([r[1] for r in runs]))
-    print(f"[breakdown] batch on the card, 3 requests after 1 warm-up: wall "
+    print(f"[breakdown] batch on the card, {BREAKDOWN_RUNS} requests after 1 "
+          f"warm-up: wall "
           f"median {np.median(walls):.2f} ms "
           f"({', '.join(f'{x:.2f}' for x in walls)}), between CUDA events "
           f"median {dev_ms:.2f} ms")
@@ -639,7 +673,10 @@ DSEC_CONFIG = {
 }
 FLOW_CAPACITY = 1 << 20            # the CLI's --event-capacity default
 FLOW_EVENTS = 1_000_000            # events per synthetic 100 ms window
-FLOW_STEPS = 4                     # 1 warm-up + 3 timed
+FLOW_STEPS = 3                     # 1 warm-up + 2 timed
+# (the phases that hold SOFTMAX_STEP_LOSSES take one step per loss)
+# Steps (requests) after 1 warm-up in each "where the time goes" phase.
+BREAKDOWN_RUNS = 2
 # Kernel vs plain on the card: the vote adds a pixel's votes with atomics
 # in run-dependent order (a few ulps of the pixel's sum); its backward and
 # the segment sum use the same f32 sums as their plain versions up to
@@ -1627,12 +1664,12 @@ def kernel_wrappers():
 
 def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
                      want, val_want, tag="flow-train", state=None,
-                     want_losses=None):
-    """train_flow at full width: 1 warm-up + 3 timed steps, one val pass,
-    a checkpoint; `state` is the train state to start from (else one made
-    from seed 0).  Fails unless every step launches `want` and the val pass
-    `val_want`.  Returns (the kernels' launch counts over the run, mean
-    step ms)."""
+                     want_losses=None, n_steps=FLOW_STEPS):
+    """train_flow at full width: 1 warm-up + `n_steps` - 1 timed steps, one
+    val pass, a checkpoint; `state` is the train state to start from (else
+    one made from seed 0).  Fails unless every step launches `want` and
+    the val pass `val_want`.  Returns (the kernels' launch counts over the
+    run, mean step ms)."""
     import tempfile
 
     from motionpriorcmax_tpu_torch.training.loop import train_flow
@@ -1646,7 +1683,7 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
                       {k: f.launches for k, f in fns.items()}))
 
     def timed_batches():
-        for _ in range(FLOW_STEPS):
+        for _ in range(n_steps):
             mark()
             yield train_batch
         mark()
@@ -1683,11 +1720,14 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
     in_val = {k: launches[k] - sum(c[k] for _, c in steps) for k in launches}
     if in_val != val_want:
         fail(f"expected {val_want} launches in the val pass, got {in_val}")
-    if len(losses) != FLOW_STEPS or not all(np.isfinite(losses)):
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
         fail(f"train losses {losses}")
     if len(set(losses)) < 2:
         fail(f"the loss did not change between steps: {losses}")
     if want_losses is not None:
+        if len(losses) < len(want_losses):
+            fail(f"{len(losses)} step losses, fewer than the "
+                 f"{len(want_losses)} recorded ones to hold them against")
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
         print(f"[{tag}] losses against the recorded ones {list(want_losses)}: "
               f"max rel diff {rel:.2e} (bound {TOL_STEP_LOSS:g})")
@@ -1781,7 +1821,7 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
         setattr(mod, attr, wrap(name, getattr(mod, attr)))
     try:
         step()                                              # warm-up
-        runs = [step() for _ in range(3)]
+        runs = [step() for _ in range(BREAKDOWN_RUNS)]
     finally:
         for mod, attr, fn in originals:
             if mod is state.optimizer:
@@ -1791,7 +1831,8 @@ def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
         for h in hooks:
             h.remove()
     dev_ms = float(np.median([r[1] for r in runs]))
-    print(f"[{tag}] batch on the card, 3 steps after 1 warm-up: "
+    print(f"[{tag}] batch on the card, {BREAKDOWN_RUNS} steps after 1 "
+          f"warm-up: "
           f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
           f"CUDA events median {dev_ms:.1f} ms")
     names = ["voxelize", "UNet forward", "trajectories", interp,
@@ -1936,7 +1977,10 @@ TAB2L5_CONFIG = {
 TRAIN_BATCH = TAB2L5_CONFIG["training"]["batch_size"]
 TRAIN_EVENTS = 1 << 19          # per sample, the JAX package's RAFT benchmark
 TRAIN_CAPACITY = 1 << 20        # the CLI's --event-capacity default
-TRAIN_STEPS = 5                 # 1 warm-up + 3 timed + 1 under torch.profiler
+TRAIN_STEPS = 4                 # 1 warm-up + 2 timed + 1 under torch.profiler
+# The one-cycle schedule's length: the 5 steps the recorded
+# TRAJ_SOFTMAX_STEP_LOSSES were taken over (the run stops after TRAIN_STEPS).
+TRAJ_SCHEDULE_STEPS = 5
 GT_STEPS_SUPERVISED = 5         # MultiFlow: 500 ms at a 100 ms GT cadence
 # The backward kernel against its plain version: both sum in f32, the
 # kernel with fused multiply-adds and another order; a bf16 d corr is that
@@ -2201,7 +2245,7 @@ def phase_traj_batches():
 def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
                      want, tag, supervised=False, want_losses=None):
     """traj-train's loop (training/loop.py::train_traj, the CLI's) at full
-    width with seeded weights: 1 warm-up + 3 timed steps, 1 step under
+    width with seeded weights: 1 warm-up + 2 timed steps, 1 step under
     torch.profiler (the idle share), then the validation pass and a
     checkpoint.  Fails unless every step launches `want` and the val pass
     TRAJ_VAL, the loss is finite and moves, the context encoder's BatchNorm
@@ -2221,7 +2265,8 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
     from motionpriorcmax_tpu_torch.training.raft_spline import \
         create_raft_train_state
 
-    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W), TRAIN_STEPS)
+    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W),
+                                              TRAJ_SCHEDULE_STEPS)
     state = create_raft_train_state(cfg, tc, "cuda",
                                     torch.Generator().manual_seed(0))
     model = state.model
@@ -2299,6 +2344,9 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
     if len(set(losses)) < 2:
         fail(f"the loss did not move: {losses}")
     if want_losses is not None:
+        if len(losses) < len(want_losses):
+            fail(f"{len(losses)} step losses, fewer than the "
+                 f"{len(want_losses)} recorded ones to hold them against")
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
         print(f"[{tag}] steps 0-{len(want_losses) - 1} losses against the "
               f"recorded ones {list(want_losses)}: max rel diff {rel:.2e} "
@@ -2369,7 +2417,8 @@ def phase_traj_breakdown(torch, cfg_tree, host_batch, tag="traj-breakdown",
     from motionpriorcmax_tpu_torch.training import raft_spline as trs
     from motionpriorcmax_tpu_torch.training.loop import to_device
 
-    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W), TRAIN_STEPS)
+    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W),
+                                              TRAJ_SCHEDULE_STEPS)
     state = trs.create_raft_train_state(cfg, tc, "cuda",
                                         torch.Generator().manual_seed(0))
     keys = (("ev_repr", "flow", "flow_timestamps") if supervised
@@ -2446,7 +2495,7 @@ def phase_traj_breakdown(torch, cfg_tree, host_batch, tag="traj-breakdown",
             warnings.simplefilter("ignore", UserWarning)
             torch.cuda.reset_peak_memory_stats()
             step()                                          # warm-up
-            runs = [step() for _ in range(3)]
+            runs = [step() for _ in range(BREAKDOWN_RUNS)]
             peak = torch.cuda.max_memory_allocated()
     finally:
         for mod, attr, fn in originals:
@@ -2459,7 +2508,8 @@ def phase_traj_breakdown(torch, cfg_tree, host_batch, tag="traj-breakdown",
     dev_ms = float(np.median([r[1] for r in runs]))
     point = ("supervised, gamma 0.8" if supervised
              else f"knn_method {loss_cfg.knn_method}")
-    print(f"[{tag}] {point}, batch on the card, 3 steps after 1 warm-up: "
+    print(f"[{tag}] {point}, batch on the card, {BREAKDOWN_RUNS} steps after "
+          f"1 warm-up: "
           f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
           f"CUDA events median {dev_ms:.1f} ms, peak memory "
           f"{peak / 2**30:.2f} GiB")
@@ -2618,7 +2668,7 @@ TRAJ_LUT = (41 * (H // 4), W // 4)  # the traj-train LUT: 41 bins x 96, 128
 # (tests/test_focus_loss.py, test_flow_recovery.py,
 # test_unet_selfsup_learning.py).
 LEARN_H, LEARN_W, LEARN_BINS = 32, 48, 5
-HOST_BATCHES = 4                   # loader batches timed per data case
+HOST_BATCHES = 3                   # loader batches timed per data case
 
 
 def segment_sum_inputs(torch, rows, cols, valid, seed):
@@ -2794,7 +2844,7 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
 def phase_unsorted_train(torch, cfg, loss_cfg, train_batch, val_batch,
                          smi_line, sorted_ms):
     """train_flow on the unsorted batches (softmax, device voxel): 1
-    warm-up + 3 timed steps and a val pass, launches per step as
+    warm-up + 2 timed steps and a val pass, launches per step as
     UNSORTED_STEP, TF32 off in the UNet's forward and backward; the sorted
     step of phase 16 beside it.  Returns the launch counts."""
     from motionpriorcmax_tpu_torch.training.trajectory_net import \
@@ -2813,7 +2863,8 @@ def phase_unsorted_train(torch, cfg, loss_cfg, train_batch, val_batch,
         launches, mean_ms = phase_flow_train(
             torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
             UNSORTED_STEP, UNSORTED_VAL, tag="unsorted-train", state=state,
-            want_losses=SOFTMAX_STEP_LOSSES)
+            want_losses=SOFTMAX_STEP_LOSSES,
+            n_steps=len(SOFTMAX_STEP_LOSSES))
     finally:
         for hk in hooks:
             hk.remove()
@@ -3084,6 +3135,471 @@ def phase_host_data(torch, cfg, loss_cfg, step_ms):
     return results
 
 
+# ---------------------------------------------------------------------------
+# dsec-infer: DSEC benchmark inference (config/dsec_inference.yaml)
+# ---------------------------------------------------------------------------
+
+# config/dsec_inference.yaml as a dict: the GPU machine has no yaml
+# (tests/test_torch_port_isolation.py checks that the two agree).
+DSEC_INFERENCE_CONFIG = {
+    "common": {"height": 480, "width": 640, "num_bins": 15, "patch_size": 4},
+    "model": {"num_basis": 1, "basis_type": "polynomial", "lr": 0.0001,
+              "model_type": "default",
+              "ckpt_path": "weights/unet_dsec_ours-poly-k1_Tab4L7.pth"},
+    "data": {"root_dir": "data/dsec", "norm_type": "mean_std"},
+    "output_dir": "runs/dsec_inference",
+}
+INFER_WINDOWS = 9                  # 1 warm-up + 8 timed
+INFER_RAW_EVENTS = (500_000, 3_000_000)   # raw events per 100 ms window
+# The voxel vote at B=1: N = 0, 1, one past a 4096-event chunk, ~1M, ~3M.
+INFER_VOTE_N = (0, 1, 4097, 1 << 20, 3_000_000)
+# The 416 windows of the seven CSVs of config/misc/dsec_test_timestamps.
+BENCHMARK_WINDOWS = 416
+# The seeded UNet's output bias in the full-width phase, px of (y, x) flow:
+# |flow| ~68 px before the 60 px cap, so the cap is exercised (the seeded
+# weights alone give flows under 1 px); the field stays smooth, as a
+# trained model's is, where scaled-up random weights would give noise
+# that zlib compresses several times slower.
+INFER_OUT_BIAS = 48.0
+INFER_STEP = {**EXACT_STEP, "iwe_vote_fwd": 0, "iwe_vote_bwd": 0,
+              "lut_gather_fwd": 0, "lut_segsum_bwd": 0, "voxel_vote": 1}
+
+
+def infer_vote_events(torch, n, seed, h=480, w=640, nb=15):
+    """[1, n, 6] rows on the card as infer_window makes them from a packed
+    window: fractional rectified (y, x), 2% of them on the last row (y in
+    [479, 480)) and 2% on the last column, sorted t in [0, 1], random p,
+    the bin of t, valid 1."""
+    rng = np.random.default_rng(seed)
+    y = rng.random(n) * h
+    x = rng.random(n) * w
+    last = rng.random(n)
+    y = np.where(last < 0.02, h - 1 + rng.random(n), y)
+    x = np.where(last > 0.98, w - 1 + rng.random(n), x)
+    t = np.sort(rng.random(n))
+    binned = np.clip(np.searchsorted(np.linspace(0, 1, nb + 1), t) - 1, 0,
+                     None)
+    ev = np.stack([y, x, t, rng.integers(0, 2, n), binned, np.ones(n)], -1)
+    return torch.from_numpy(ev.astype(np.float32)[None]).cuda()
+
+
+def phase_infer_vote(torch):
+    """Row 8 against its plain version at the inference shapes (B = 1, N
+    varying per window), then timed at ~1M and ~3M events: the card's
+    time, the bytes bound (24 N + 4 x 15 x 480 x 640 at 3.35 TB/s), the
+    plain version and index_add_ of the eight taps."""
+    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
+
+    c = DSEC_INFERENCE_CONFIG["common"]
+    nb, h, w = c["num_bins"], c["height"], c["width"]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for i, n in enumerate(INFER_VOTE_N):
+        ev = infer_vote_events(torch, n, 40 + i, h, w, nb)
+        got = vv.voxel_vote(ev, nb, h, w)
+        want = vv.voxel_vote_plain(ev, nb, h, w)
+        err = check_close(f"voxel_vote B=1 N={n} {nb}x{h}x{w} (fractional, "
+                          f"4% on the last row / column)", got, want,
+                          TOL_VOXEL, tag="infer-vote")
+        if n == 0 and bool(got.any()):
+            fail("voxel_vote of an empty window left nonzero values")
+        if n > 1:
+            # The last row and column hold votes: their floor + 1 taps are
+            # masked, their floor taps are not.
+            if not (bool(want[..., h - 1, :].any())
+                    and bool(want[..., :, w - 1].any())):
+                fail("no votes on the last row or column")
+        case = {"n": n, "max_abs_err": err}
+        if n >= 1 << 20:
+            idx, val = vv.voxel_taps(ev, nb, h, w)
+            idx, val = idx.reshape(-1), val.reshape(-1)
+            img = torch.zeros(nb * h * w, device="cuda")
+            nbytes = 24 * n + 4 * nb * h * w
+            case.update(time_kernel(
+                torch, f"voxel_vote inference B=1 N={n}",
+                lambda: vv.voxel_vote(ev, nb, h, w),
+                lambda: vv.voxel_vote_plain(ev, nb, h, w),
+                lambda: img.zero_().index_add_(0, idx, val), flush, nbytes))
+            case["card_ms"] = time_ms(torch, lambda: vv.voxel_vote(
+                ev, nb, h, w), flush, card=True)
+            print(f"[infer-vote] B=1 N={n}: card time "
+                  f"{case['card_ms'] * 1e3:.1f} us, bound "
+                  f"{case['bound_ms'] * 1e3:.1f} us "
+                  f"({case['bound_ms'] / case['card_ms']:.0%} of it)")
+            del idx, val, img
+        cases.append(case)
+        del ev, got, want
+    del flush
+    torch.cuda.empty_cache()
+    return cases
+
+
+def infer_sequence_arrays(seed, n_windows, name="zurich_city_99_z"):
+    """An in-memory DSEC test sequence as DsecSequence reads it (the
+    arrays of an events.h5, a rectify map, a timestamp CSV's rows): 100 ms
+    windows 500 ms apart, each of raw events drawn from INFER_RAW_EVENTS
+    (sensor x, y; sorted microsecond times; random polarity), the rectify
+    map a radial distortion (sub-pixel coordinates, the corners mapped out
+    of the image) with two bands mapped onto the last row and column."""
+    rng = np.random.default_rng(seed)
+    h, w = 480, 640
+    counts = rng.integers(*INFER_RAW_EVENTS, n_windows)
+    starts = 1_000_000 + 500_000 * np.arange(n_windows)
+    t = np.concatenate([np.sort(rng.integers(s, s + 100_000, k))
+                        for s, k in zip(starts, counts)]).astype(np.int64)
+    total = len(t)
+    duration_ms = int(starts[-1] // 1000) + 200
+    arrays = {
+        "events/t": t,
+        "events/x": rng.integers(0, w, total).astype(np.uint16),
+        "events/y": rng.integers(0, h, total).astype(np.uint16),
+        "events/p": rng.integers(0, 2, total).astype(np.uint8),
+        "ms_to_idx": np.searchsorted(
+            t, np.arange(duration_ms + 1) * 1000).astype(np.int64),
+        "t_offset": np.asarray(50_000_000_000, np.int64),
+    }
+    gx, gy = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64))
+    r2 = (gx - w / 2) ** 2 + (gy - h / 2) ** 2
+    scale = 1.0 + 2e-7 * r2
+    rect = np.stack([w / 2 + (gx - w / 2) * scale,
+                     h / 2 + (gy - h / 2) * scale], -1)
+    rect[100:108, :, 1] = h - 1 + 0.6
+    rect[:, 200:208, 0] = w - 1 + 0.7
+    offset = int(arrays["t_offset"])
+    rows = [(offset + s, offset + s + 100_000, 10 * (i + 1))
+            for i, s in enumerate(starts)]
+    return arrays, rect.astype(np.float32), rows, counts
+
+
+def write_timestamp_csv(path, rows):
+    """A benchmark CSV as config/misc/dsec_test_timestamps holds them (a
+    space after each comma)."""
+    with open(path, "w") as fh:
+        fh.write("from_timestamp_us,to_timestamp_us,file_index\n")
+        for a, b, c in rows:
+            fh.write(f"{a}, {b}, {c}\n")
+
+
+def infer_sequence_at(path, csv_path, arrays, rect):
+    from pathlib import Path
+
+    from motionpriorcmax_tpu_torch.data.dsec import DsecSequence
+
+    nb = DSEC_INFERENCE_CONFIG["common"]["num_bins"]
+    return DsecSequence(Path(path), "test", nb, timestamp_path=str(csv_path),
+                        event_file=arrays, rectify_map=rect)
+
+
+def infer_state(torch, device, unet_widths=None):
+    """dsec_inference.yaml's model (f32) through the CLI's config, seeded
+    weights; `unet_widths` narrows it."""
+    from motionpriorcmax_tpu_torch.cli.main import infer_config
+    from motionpriorcmax_tpu_torch.config import propagate_config
+    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
+
+    tree = propagate_config(copy.deepcopy(DSEC_INFERENCE_CONFIG))
+    if unet_widths is not None:
+        tree["model"]["unet_widths"] = list(unet_widths)
+    cfg = infer_config(tree)
+    return ttn.create_train_state(cfg, device,
+                                  torch.Generator().manual_seed(0)), cfg
+
+
+def check_pngs(out_dir, rows):
+    """Every PNG of the windows read back: decoded, finite, within the
+    60 px cap plus the quantization (each component rounded down to a
+    1/128 px step: sqrt(2) / 128 px on the magnitude).  Returns the largest
+    flow magnitude."""
+    from motionpriorcmax_tpu_torch.cli.main import MAX_FLOW_PX
+    from motionpriorcmax_tpu_torch.utils.flow_io import load_flow_png
+
+    largest = 0.0
+    for _, _, idx in rows:
+        flow, _ = load_flow_png(out_dir / f"{idx:06d}.png")
+        if flow.shape != (2, 480, 640) or not np.isfinite(flow).all():
+            fail(f"{idx:06d}.png: shape {flow.shape} or non-finite flow")
+        mag = float(np.sqrt((flow ** 2).sum(0)).max())
+        if not mag <= MAX_FLOW_PX + np.sqrt(2) / 128:
+            fail(f"{idx:06d}.png: flow magnitude {mag} above the cap")
+        largest = max(largest, mag)
+    return largest
+
+
+# The parts of a dsec-infer window, in order.
+INFER_PARTS = ("pack", "h2d", "voxel_vote", "normalize", "unet", "flow",
+               "d2h", "png")
+
+
+@contextlib.contextmanager
+def infer_part_marks(state, seq, mark):
+    """Yields `seq` wrapped so that infer_sequence's run over it calls
+    `mark(part)` at the end of each of INFER_PARTS: the functions that
+    infer_window and infer_sequence look up by name at call time are
+    wrapped (and the model gets a forward hook), so the CLI's own code runs
+    unchanged.  pack: the sample; h2d: the events to the card, up to the
+    voxel vote; unet: the model's forward; flow: from the coefficients;
+    d2h: the flow to the host, up to the 60 px cap; png: the cap, the
+    encoding and the write."""
+    from motionpriorcmax_tpu_torch.ops import events
+    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
+    from motionpriorcmax_tpu_torch.utils import flow_io
+
+    def around(fn, before, after):
+        def inner(*a, **k):
+            if before:
+                mark(before)
+            res = fn(*a, **k)
+            if after:
+                mark(after)
+            return res
+        return inner
+
+    class Marked:
+        def __len__(self):
+            return len(seq)
+
+        def __getitem__(self, i):
+            sample = seq[i]
+            mark("pack")
+            return sample
+
+    # (module, attribute, part ending at its call, part ending at its return)
+    targets = [(events, "voxel_grid_from_events", "h2d", "voxel_vote"),
+               (events, "normalize_voxel_grid", None, "normalize"),
+               (ttn, "flow_from_coeffs", None, "flow"),
+               (flow_io, "scale_optical_flow", "d2h", None),
+               (flow_io, "save_flow_png", None, "png")]
+    originals = [(mod, attr, getattr(mod, attr))
+                 for mod, attr, _, _ in targets]
+    hook = state.model.register_forward_hook(lambda m, i, o: mark("unet"))
+    try:
+        for mod, attr, before, after in targets:
+            setattr(mod, attr, around(getattr(mod, attr), before, after))
+        yield Marked()
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+        hook.remove()
+
+
+def phase_infer(torch, smi_line):
+    """dsec-infer end to end at full width: dsec_inference.yaml (f32 UNet
+    64-1024, B=1, 480x640), seeded weights, the CLI's per-sequence function
+    over an in-memory sequence of INFER_WINDOWS windows (its native pack
+    through DsecSequence.__getitem__).  A first pass with 1 warm-up window
+    and INFER_WINDOWS - 1 timed; a second with the card synchronized at
+    every part (CUDA events for the card's parts, the host clock for the
+    pack and the PNG; infer_part_marks).  Returns (voxel_vote launches in
+    the first pass, numbers)."""
+    import tempfile
+    from pathlib import Path
+
+    from motionpriorcmax_tpu_torch.cli.main import infer_sequence
+    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
+
+    norm = DSEC_INFERENCE_CONFIG["data"]["norm_type"]
+    t0 = time.perf_counter()
+    arrays, rect, rows, counts = infer_sequence_arrays(21, INFER_WINDOWS)
+    print(f"[dsec-infer] in-memory sequence: {INFER_WINDOWS} windows of "
+          f"{', '.join(str(int(c)) for c in counts)} raw events, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    state, cfg = infer_state(torch, "cuda")
+    with torch.no_grad():
+        state.model.unet.outc.conv.bias.fill_(INFER_OUT_BIAS)
+    seen = set()
+    hook = state.model.unet.register_forward_pre_hook(
+        lambda mod, inp: seen.add(tf32_flags(torch)))
+    fns = kernel_wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_timestamp_csv(tmp / "seq.csv", rows)
+        seq = infer_sequence_at(tmp / "zurich_city_99_z", tmp / "seq.csv",
+                                arrays, rect)
+        stamps = []
+
+        def stamp(part):
+            if part == "png":
+                stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in fns.values():
+            f.launches = 0
+        t_run = time.perf_counter()
+        with infer_part_marks(state, seq, stamp) as marked:
+            n = infer_sequence(state, cfg, marked, tmp / "flow", norm,
+                               torch.device("cuda"))
+        launches = {k: f.launches for k, f in fns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        per_window = np.diff([t_run] + stamps)
+        largest = check_pngs(tmp / "flow", rows)
+        if not largest >= 60 - np.sqrt(2) / 128:
+            fail(f"the largest flow in the PNGs, {largest} px, never reached "
+                 "the 60 px cap")
+
+        # Pass 2: the parts of each window.
+        parts = {}
+        ev_marks, host_marks = [], []
+
+        def part_mark(part):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            torch.cuda.synchronize()
+            ev_marks.append((part, ev))
+            host_marks.append((part, time.perf_counter()))
+
+        part_mark("start")
+        with infer_part_marks(state, seq, part_mark) as marked:
+            infer_sequence(state, cfg, marked, tmp / "flow2", norm,
+                           torch.device("cuda"))
+        check_pngs(tmp / "flow2", rows)
+        per_part = len(INFER_PARTS) + 1
+        if [p for p, _ in ev_marks[1:]] != n * list(INFER_PARTS):
+            fail(f"the parts of the windows came as "
+                 f"{[p for p, _ in ev_marks]}, not {list(INFER_PARTS)} "
+                 f"{n} times")
+        for wi in range(1, n):             # window 0 is the warm-up
+            base = wi * (per_part - 1)
+            for j in range(1, per_part):
+                part, ev = ev_marks[base + j]
+                _, prev_ev = ev_marks[base + j - 1]
+                if part in ("pack", "png"):
+                    ms = (host_marks[base + j][1]
+                          - host_marks[base + j - 1][1]) * 1e3
+                else:
+                    ms = prev_ev.elapsed_time(ev)
+                parts.setdefault(part, []).append(ms)
+        packed = [len(seq[i]["events"]) for i in range(n)]
+    hook.remove()
+    timed = per_window[1:]
+    mean_ms = float(np.mean(timed)) * 1e3
+    if n != INFER_WINDOWS:
+        fail(f"{n} windows inferred, not {INFER_WINDOWS}")
+    per = {k: v / n for k, v in launches.items()}
+    if per != {k: float(v) for k, v in INFER_STEP.items()}:
+        fail(f"expected {INFER_STEP} launches per window, got {launches} "
+             f"over {n} windows")
+    if seen != {(False, False)}:
+        fail(f"the f32 UNet ran with TF32 flags (matmul, cudnn) {seen}")
+    for i, dt in enumerate(per_window):
+        print(f"[dsec-infer] window {i}{' (warm-up)' if i == 0 else ''}: "
+              f"{counts[i]} raw -> {packed[i]} packed events, "
+              f"{dt * 1e3:.1f} ms")
+    mean_parts = {k: float(np.mean(v)) for k, v in parts.items()}
+    total = sum(mean_parts.values())
+    print(f"[dsec-infer] dsec_inference.yaml B=1 480x640 f32 UNet "
+          f"{list(cfg.unet_widths)}: {mean_ms:.1f} ms per window over "
+          f"{len(timed)} windows ({', '.join(f'{x * 1e3:.1f}' for x in timed)}"
+          f"), {1e3 / mean_ms:.3f} windows/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, voxel_vote launches per window "
+          f"{launches['voxel_vote'] / n:g}, TF32 (matmul, cudnn) inside the "
+          f"forward: {sorted(seen)}; largest flow in the PNGs {largest:.3f} px "
+          f"(cap 60; output bias {INFER_OUT_BIAS:g} px); card "
+          f"{smi_line}")
+    print("[dsec-infer] parts per window, synchronized pass (mean over "
+          f"{len(timed)} windows; CUDA events, host clock for pack and png): "
+          + ", ".join(f"{k} {v:.2f} ms ({v / total:.1%})"
+                      for k, v in mean_parts.items())
+          + f"; sum {total:.1f} ms")
+    host = mean_parts["pack"] + mean_parts["png"]
+    print(f"[dsec-infer] host share (pack + scale/PNG) {host / total:.1%}; "
+          f"the {BENCHMARK_WINDOWS} windows of the 7 test CSVs: "
+          f"{BENCHMARK_WINDOWS * mean_ms / 1e3:.1f} s (derived: "
+          f"{BENCHMARK_WINDOWS} x the mean window above, not measured)")
+    del state
+    torch.cuda.empty_cache()
+    return launches["voxel_vote"], {
+        "ms_per_window": mean_ms, "windows_per_s": 1e3 / mean_ms,
+        "peak_gib": peak / 2**30, "parts_ms": mean_parts}
+
+
+def phase_infer_card_vs_cpu(torch):
+    """The same seeded weights and windows at narrow UNet widths through
+    infer_window on the CPU (plain voxel vote) and on the card (kernel)."""
+    import tempfile
+    from pathlib import Path
+
+    from motionpriorcmax_tpu_torch.cli.main import infer_window
+
+    norm = DSEC_INFERENCE_CONFIG["data"]["norm_type"]
+    arrays, rect, rows, _ = infer_sequence_arrays(22, 2)
+    flows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_timestamp_csv(Path(tmp) / "seq.csv", rows)
+        seq = infer_sequence_at(Path(tmp) / "zurich_city_98_z",
+                                Path(tmp) / "seq.csv", arrays, rect)
+        windows = [seq[i]["events"] for i in range(len(seq))]
+    for dev in ("cpu", "cuda"):
+        state, cfg = infer_state(torch, dev, unet_widths=(8, 16, 16, 32, 32))
+        flows[dev] = [infer_window(state, cfg, ev, norm, torch.device(dev))
+                      for ev in windows]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(flows["cpu"], flows["cuda"])):
+        if not np.isfinite(b).all():
+            fail(f"window {i}: non-finite flow on the card")
+        scale = max(1.0, float(np.abs(a).max()))
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err / scale)
+        print(f"[infer-card-vs-cpu] window {i} ({len(windows[i])} packed "
+              f"events), f32 UNet [8, 16, 16, 32, 32] 480x640: max |flow "
+              f"card - cpu| {err:.3e} (bound {TOL_CARD_VS_CPU * scale:.3e} = "
+              f"{TOL_CARD_VS_CPU:g} x max(1, max |cpu flow|))")
+        if not err <= TOL_CARD_VS_CPU * scale:
+            fail("card and CPU inference disagree")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# flow-train's remaining configuration values: grid KNN, L1 softmax,
+# capacity buckets
+# ---------------------------------------------------------------------------
+
+PART_B_STEPS = 2                   # 1 warm-up + 1 timed
+# The L1 softmax interpolation is plain PyTorch (JAX's Pallas kernel is
+# l2 only): no softmax-interp launch.
+L1_STEP = {**SOFTMAX_STEP, "softmax_interp_fwd": 0, "softmax_interp_bwd": 0}
+L1_VAL = {**SOFTMAX_VAL, "softmax_interp_fwd": 0}
+BUCKETS = (1 << 19, 1 << 20)       # --event-capacity-buckets 524288,1048576
+BUCKET_EVENTS = 300_000            # raw events per window: below a half bucket
+
+
+def phase_buckets(torch, scfg, sloss, smi_line):
+    """One batch through the DataLoader with capacity buckets (2^19, 2^20)
+    from 14 windows of BUCKET_EVENTS events: each polarity half padded to
+    2^18 (half the smaller bucket), the batch at 2^19 < 2^20; then
+    train_flow's softmax / device-voxel step on it."""
+    from motionpriorcmax_tpu_torch.data.loader import DataLoader
+
+    h, w = scfg.image_shape
+    b = DSEC_CONFIG["data"]["batch_size"]
+    samples = flow_samples(8, b, BUCKET_EVENTS, h, w, scfg.num_bins,
+                           gt=True, voxel=False)
+    t0 = time.perf_counter()
+    loader = DataLoader(samples, batch_size=b, capacity=FLOW_CAPACITY,
+                        shuffle=False,
+                        num_workers=DSEC_CONFIG["data"]["num_workers"],
+                        polarity_aware=True, capacity_buckets=BUCKETS,
+                        lut_cell_sort_params=(
+                            sloss.image_shape, sloss.num_bins,
+                            sloss.lut_superpixel_size),
+                        pin_memory=True)
+    batch = next(iter(loader))
+    dt = time.perf_counter() - t0
+    m, npos = batch["events"].shape[1], batch["num_pos_events"]
+    print(f"[buckets] {b} windows of {BUCKET_EVENTS} events, buckets "
+          f"{list(BUCKETS)}: batch events {list(batch['events'].shape)}, "
+          f"num_pos_events {npos}, {dt:.2f} s through the loader")
+    if not (m == BUCKETS[0] and npos == BUCKETS[0] // 2):
+        fail(f"expected a batch of {BUCKETS[0]} events, {BUCKETS[0] // 2} "
+             f"per half; got {m}, {npos}")
+    train = {k: v for k, v in batch.items()
+             if k not in ("forward_flow", "flow_valid")}
+    return phase_flow_train(torch, scfg, sloss, train, batch, smi_line,
+                            SOFTMAX_STEP, SOFTMAX_VAL, tag="bucket-train",
+                            n_steps=PART_B_STEPS)
+
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -3220,16 +3736,14 @@ def main() -> int:
     t_soft = time.perf_counter()
     scfg, sloss = flow_configs({**DSEC_CONFIG, "loss": {
         **DSEC_CONFIG["loss"], "knn_method": "softmax"}})
-    train_batch.pop("voxel")
-    val_batch.pop("voxel")
+    host_voxel = train_batch.pop("voxel"), val_batch.pop("voxel")
     numbers.update(phase_softmax_kernels(torch, sloss, train_batch))
     soft_launches, soft_ms = phase_flow_train(
         torch, scfg, sloss, train_batch, val_batch, smi_line, SOFTMAX_STEP,
-        SOFTMAX_VAL, tag="softmax-train", want_losses=SOFTMAX_STEP_LOSSES)
-    del val_batch
+        SOFTMAX_VAL, tag="softmax-train", want_losses=SOFTMAX_STEP_LOSSES,
+        n_steps=len(SOFTMAX_STEP_LOSSES))
     phase_flow_breakdown(torch, scfg, sloss, train_batch,
                          tag="softmax-breakdown")
-    del train_batch
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch, {"knn_method": "softmax"}, True,
                            SOFTMAX_STEP, tag="softmax-card-vs-cpu")
@@ -3292,6 +3806,43 @@ def main() -> int:
         (True, True): (soft_ms, "softmax device-voxel (phase 16)"),
         (False, True): (uns_ms, "unsorted softmax device-voxel (phase 27)")})
     print(f"[done] host data phase {time.perf_counter() - t_host:.1f} s")
+
+    # dsec-infer: DSEC benchmark inference, row 8 at B = 1
+    t_inf = time.perf_counter()
+    infer_cases = phase_infer_vote(torch)
+    print(f"[done] phase 32 {time.perf_counter() - t_inf:.1f} s")
+    infer_launches, infer_numbers = phase_infer(torch, smi_line)
+    print(f"[done] phases 32-33 {time.perf_counter() - t_inf:.1f} s")
+    infer_cpu_err = phase_infer_card_vs_cpu(torch)
+    print(f"[done] dsec-infer phases {time.perf_counter() - t_inf:.1f} s")
+
+    # flow-train's grid KNN, L1 softmax and capacity buckets
+    t_b = time.perf_counter()
+    gcfg, gloss = flow_configs({**DSEC_CONFIG, "loss": {
+        **DSEC_CONFIG["loss"], "knn_method": "grid"}})
+    phase_flow_train(
+        torch, gcfg, gloss, {**train_batch, "voxel": host_voxel[0]},
+        {**val_batch, "voxel": host_voxel[1]}, smi_line, EXACT_STEP,
+        EXACT_VAL, tag="grid-train", n_steps=PART_B_STEPS)
+    torch.cuda.empty_cache()
+    phase_flow_card_vs_cpu(torch, {"knn_method": "grid"},
+                           tag="grid-card-vs-cpu")
+    print(f"[done] phase 35 {time.perf_counter() - t_b:.1f} s")
+    lcfg, lloss = flow_configs({**DSEC_CONFIG, "loss": {
+        **DSEC_CONFIG["loss"], "knn_method": "softmax", "dist_norm": "l1"}})
+    phase_flow_train(torch, lcfg, lloss, train_batch, val_batch, smi_line,
+                     L1_STEP, L1_VAL, tag="l1-softmax-train",
+                     n_steps=PART_B_STEPS)
+    del train_batch, val_batch, host_voxel
+    torch.cuda.empty_cache()
+    phase_flow_card_vs_cpu(torch, {"knn_method": "softmax",
+                                   "dist_norm": "l1"}, True, L1_STEP,
+                           tag="l1-card-vs-cpu")
+    print(f"[done] phases 35-36 {time.perf_counter() - t_b:.1f} s")
+    phase_buckets(torch, scfg, sloss, smi_line)
+    torch.cuda.empty_cache()
+    print(f"[done] grid / L1 softmax / bucket phases "
+          f"{time.perf_counter() - t_b:.1f} s")
     kernels.append({
         "name": "corr_window_lookup_bwd", "route": "cuda",
         "source": "motionpriorcmax_tpu_torch/csrc/corr_window.cu",
@@ -3316,6 +3867,19 @@ def main() -> int:
             entry["unsorted_step_launches"] = uns_launches[kname]
         entry.update(numbers[kname])
         entry["work"] = FLOW_WORK[kname]
+        if kname == "voxel_vote":
+            # This slice's main path: dsec-infer, one launch per window.
+            entry["inference"] = {
+                "launches": infer_launches,
+                "launches_per_window": infer_launches / INFER_WINDOWS,
+                "cases": infer_cases,
+                "card_vs_cpu_rel_err": infer_cpu_err,
+                "work": "B=1, N events per window (0, 1, 4097, 2^20, 3M), "
+                        "fractional rectified coordinates, 4% on the last "
+                        "row / column, 15 x 480 x 640 (bound: 24 N + "
+                        "4 x 15 x 480 x 640 bytes at 3.35 TB/s; library: "
+                        "index_add_ of the eight taps)",
+                **infer_numbers}
         kernels.append(entry)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,8 +2,12 @@
 
 flow-train: self-supervised DSEC flow training (UNet + focus loss), with
 the JAX CLI's --config / --workdir / --ckp_path / --event-capacity /
---log-every / --device-voxelize (voxel grids built inside the step from the
-batch's events instead of by the loader), plus --device.
+--event-capacity-buckets / --log-every / --device-voxelize (voxel grids
+built inside the step from the batch's events instead of by the loader),
+plus --device.
+dsec-infer: DSEC benchmark-submission PNGs of the seven test sequences,
+with the JAX CLI's --config / --timestamp-dir / --ckpt-step, plus --device.
+extract-weights: a checkpoint -> bare weights .npz that dsec-infer reads.
 traj-val: RAFT-Spline trajectory validation on EVIMO2 or MultiFlow, with
 the JAX CLI's arguments, Hydra-style overrides and printout, plus --device.
 traj-train: RAFT-Spline training, self-supervised or supervised, with the
@@ -77,6 +81,7 @@ def cmd_flow_train(args) -> int:
                           capacity=capacity, shuffle=shuffle,
                           num_workers=dc.get("num_workers", 8),
                           polarity_aware=pab, pos_capacity=pos_capacity,
+                          capacity_buckets=args.event_capacity_buckets,
                           lut_cell_sort_params=(
                               loss_cfg.image_shape, loss_cfg.num_bins,
                               loss_cfg.lut_superpixel_size),
@@ -95,6 +100,140 @@ def cmd_flow_train(args) -> int:
                      resume_state=resume_state, log_every=args.log_every)
     print(f"done: best={out['best']:.4f} steps={out['steps']}")
     return 0
+
+
+MAX_FLOW_PX = 60      # the DSEC benchmark's magnitude cap
+
+
+def infer_config(config: dict):
+    """The TrajectoryNetConfig of a propagated dsec_inference.yaml-style
+    config (its loss section a stub when it has none, as JAX's)."""
+    cfg, _ = flow_configs({**config, "loss": config.get("loss", {
+        "loss_name": "FOCUS", "image_shape": config["model"]["image_shape"]})})
+    return cfg
+
+
+def infer_window(state, cfg, events: np.ndarray, norm_type: Optional[str],
+                 device: torch.device) -> np.ndarray:
+    """Dense flow [2, H, W] f32 on the host of one window's packed [N, 5]
+    events (y, x, t, p, bin): the events as [1, N, 6] rows with valid = 1
+    on `device`, one voxel vote (the voxel-vote kernel on the card),
+    `normalize_voxel_grid` with `norm_type`, then `predict_flow`."""
+    from ..ops.events import normalize_voxel_grid, voxel_grid_from_events
+    from ..training.trajectory_net import predict_flow
+
+    h, w = cfg.image_shape
+    packed = torch.from_numpy(events).to(device)
+    rows = torch.cat([packed, torch.ones_like(packed[:, :1])], 1)[None]
+    with torch.no_grad():
+        voxel = voxel_grid_from_events(rows, num_bins=cfg.num_bins,
+                                       height=h, width=w)
+        voxel = normalize_voxel_grid(voxel, norm_type)
+    return predict_flow(state, voxel, cfg)[0].cpu().numpy()
+
+
+def infer_sequence(state, cfg, seq, out_dir: Path, norm_type: Optional[str],
+                   device: torch.device) -> int:
+    """Flow PNGs of every window of `seq` (a test-phase DsecSequence) under
+    `out_dir`, named <file_index:06d>.png; returns the window count.
+
+    Per window: the sample (events rectified and packed), `infer_window`,
+    the 60 px cap and the 16-bit PNG."""
+    from ..utils.flow_io import save_flow_png, scale_optical_flow
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(len(seq)):
+        sample = seq[i]
+        flow = infer_window(state, cfg, sample["events"], norm_type, device)
+        save_flow_png(out_dir / f"{int(sample['file_index']):06d}.png",
+                      scale_optical_flow(flow, MAX_FLOW_PX))
+    return len(seq)
+
+
+def cmd_dsec_infer(args) -> int:
+    """DSEC benchmark-submission inference (reference
+    scripts/dsec_inference.py): the UNet's weights from a reference .pth /
+    .ckpt, an .npz of either layout or a flow-train checkpoint directory;
+    the test sequences of the timestamp CSVs; 16-bit PNGs with the 60 px
+    magnitude cap under <output_dir>/<date_time>/flow/<sequence>/."""
+    from datetime import datetime
+
+    from ..config import load_yaml, propagate_config
+    from ..data.dsec import DsecSequence
+    from ..device import resolve_device
+    from ..training.checkpoint import load_flow_model_weights
+    from ..training.trajectory_net import create_train_state
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        raise SystemExit(f"dsec-infer: {exc}") from None
+    config = propagate_config(load_yaml(args.config))
+    cfg = infer_config(config)
+    state = create_train_state(cfg, device)
+    ckpt_path = config["model"]["ckpt_path"]
+    try:
+        loaded = load_flow_model_weights(state.model, str(ckpt_path),
+                                         args.ckpt_step)
+    except (ValueError, FileNotFoundError) as exc:
+        raise SystemExit(f"dsec-infer: {exc}") from None
+    print(f"loaded {loaded}")
+
+    timestamp_dir = Path(args.timestamp_dir)
+    test_seqs = sorted(p.stem for p in timestamp_dir.glob("*.csv"))
+    dataset_dir = Path(config["data"]["root_dir"]) / "test"
+    run_out = Path(config["output_dir"]) / f"{datetime.now():%Y%m%d_%H%M%S}"
+    norm_type = config["data"].get("norm_type", "mean_std")
+    for seq_name in test_seqs:
+        seq = DsecSequence(dataset_dir / seq_name, "test", cfg.num_bins,
+                           timestamp_path=str(timestamp_dir
+                                              / f"{seq_name}.csv"))
+        out_dir = run_out / "flow" / seq_name
+        n = infer_sequence(state, cfg, seq, out_dir, norm_type, device)
+        print(f"{seq_name}: {n} flow maps -> {out_dir}")
+    print("Done.")
+    return 0
+
+
+def cmd_extract_weights(args) -> int:
+    """Checkpoint -> bare weights .npz in the torch-key layout (the
+    reference UNet's names, which both packages' dsec-infer read): a
+    flow-train checkpoint directory (its best-metric step, else the
+    latest), or a Lightning .ckpt / .pth with 'model.' stripped (reference
+    scripts/extract_weights_from_checkpoint.py)."""
+    from ..training.checkpoint import (checkpoint_model_state,
+                                       extract_model_weights,
+                                       find_checkpoint_dir,
+                                       flow_model_torch_keys)
+
+    if Path(args.ckpt).is_dir():
+        ckpt_dir = find_checkpoint_dir(args.ckpt)
+        if ckpt_dir is None:
+            raise SystemExit(
+                f"extract-weights: {args.ckpt!r} holds no checkpoint of "
+                "flow-train (index.json and step_*.pt)")
+        state, step = checkpoint_model_state(str(ckpt_dir), best=True)
+        weights = flow_model_torch_keys(state)
+        print(f"extracted step {step}")
+    else:
+        weights = extract_model_weights(args.ckpt)
+    np.savez(args.out, **{k: v.cpu().numpy() for k, v in weights.items()})
+    print(f"wrote {len(weights)} arrays -> {args.out}")
+    return 0
+
+
+def parse_buckets(value: str):
+    """--event-capacity-buckets: comma-separated positive ascending ints."""
+    try:
+        buckets = tuple(int(b) for b in value.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected comma-separated integers, got {value!r}")
+    if not buckets or any(b <= 0 for b in buckets) or \
+            list(buckets) != sorted(buckets):
+        raise argparse.ArgumentTypeError(
+            f"buckets must be positive and ascending, got {value!r}")
+    return buckets
 
 
 def raft_config_from_tree(mc: dict, phase: str = "test"):
@@ -400,6 +539,12 @@ def main(argv=None) -> int:
     p.add_argument("--ckp_path", "--ckp-path", dest="ckp_path", default=None,
                    help="a checkpoint directory of this port's flow-train")
     p.add_argument("--event-capacity", type=int, default=1 << 20)
+    p.add_argument("--event-capacity-buckets", default=None,
+                   type=parse_buckets,
+                   help="comma-separated ascending capacities; a batch pads "
+                        "to the smallest one covering its largest sample "
+                        "(per polarity half, at half the bucket) instead of "
+                        "always --event-capacity")
     p.add_argument("--log-every", type=int, default=200)
     p.add_argument("--device-voxelize", action="store_true",
                    help="voxelize the batch's (capacity-truncated) events "
@@ -408,6 +553,17 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda fails when absent")
     p.set_defaults(fn=cmd_flow_train)
+
+    p = sub.add_parser("dsec-infer", help="DSEC benchmark PNG inference")
+    p.add_argument("--config", required=True)
+    p.add_argument("--timestamp-dir",
+                   default="config/misc/dsec_test_timestamps")
+    p.add_argument("--ckpt-step", type=int, default=None,
+                   help="step of a flow-train checkpoint directory (default: "
+                        "the best-metric retained one, else the latest)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda fails when absent")
+    p.set_defaults(fn=cmd_dsec_infer)
 
     p = sub.add_parser("traj-val", help="EVIMO2 trajectory validation")
     p.add_argument("--config-dir", required=True)
@@ -438,6 +594,11 @@ def main(argv=None) -> int:
                    help="cuda (default) or cpu; cuda fails when absent")
     p.add_argument("overrides", nargs="*")
     p.set_defaults(fn=cmd_traj_train)
+
+    p = sub.add_parser("extract-weights", help="ckpt -> bare weights npz")
+    p.add_argument("ckpt")
+    p.add_argument("out")
+    p.set_defaults(fn=cmd_extract_weights)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -3,6 +3,8 @@
 Events are padded (or tail-truncated) to a static capacity, with the 6th
 'valid' column marking real rows.  Polarity-aware batching packs positives
 first at a static positive capacity (capacity // 2 by default).  With
+capacity buckets (the loader's) a batch pads to the smallest bucket that
+covers its largest sample instead (`bucket_capacities`).  With
 `lut_cell_sort_params` events are sorted by flow-LUT cell within each
 polarity segment and the batch carries 'lut_cell_ends'.  Each sample's
 share (`prepare_sample`) is apart from the stack (`stack_samples`), so the
@@ -11,9 +13,37 @@ loader runs it on its pool threads.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def round_up_capacity(n: int, buckets: Sequence[int]) -> int:
+    """The smallest bucket >= n; the last bucket when none is (the
+    overflow is then tail-truncated)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def bucket_capacities(samples: Sequence[Dict[str, np.ndarray]],
+                      buckets: Sequence[int], polarity_aware: bool = False
+                      ) -> Tuple[int, Optional[int]]:
+    """(capacity, pos_capacity) of a batch under ascending capacity buckets:
+    the smallest bucket covering the batch's largest sample or, with
+    polarity_aware, each polarity half from the buckets halved (its
+    positives' and its negatives' largest count each), the capacity being
+    their sum; pos_capacity is None without polarity_aware."""
+    if polarity_aware:
+        half = [b // 2 for b in buckets]
+        pos = round_up_capacity(max(len(s["pos_events"]) for s in samples),
+                                half)
+        neg = round_up_capacity(max(len(s["neg_events"]) for s in samples),
+                                half)
+        return pos + neg, pos
+    return round_up_capacity(max(len(s["events"]) for s in samples),
+                             buckets), None
 
 
 def pad_events(events: np.ndarray, capacity: int) -> np.ndarray:

@@ -3,24 +3,29 @@
 opened).
 
   * the 24 train / 2 val sequences of the reference split
-  * 100 ms windows from the image timestamps [::2][1:-1] (train) or
-    flow/forward_timestamps.txt (val)
-  * events.h5 slicing through ms_to_idx plus an exact searchsorted refine
+  * 100 ms windows from the image timestamps [::2][1:-1] (train),
+    flow/forward_timestamps.txt (val) or a benchmark timestamp CSV (test)
+  * events.h5 slicing through ms_to_idx plus an exact searchsorted refine;
+    a sequence can also read an already opened events file or a mapping of
+    numpy arrays under the same keys (no h5py then)
   * per-event rectification map lookup (native C++ or NumPy)
   * events packed as (y, x, t_norm, p, bin) float32 rows, optionally split
     by polarity, optionally voxelized on the host
-  * GT flow decoded from the 16-bit PNGs
+  * GT flow decoded from the 16-bit PNGs (train and val)
 """
 
 from __future__ import annotations
 
+import csv
 import math
 import os
 import weakref
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
+
+from ..utils.flow_io import load_flow_png
 
 TRAIN_SEQS = [
     "zurich_city_04_d", "zurich_city_02_a", "interlaken_00_f", "zurich_city_11_a",
@@ -37,7 +42,10 @@ DELTA_T_US = 100_000
 
 
 class EventSlicer:
-    """Events of an events.h5 with t0 <= t < t1 (GPS time, microseconds)."""
+    """Events of an events.h5 with t0 <= t < t1 (GPS time, microseconds).
+
+    `h5f` is the opened file or any mapping with its keys: 'events/p',
+    'events/x', 'events/y', 'events/t', 'ms_to_idx' and 't_offset'."""
 
     def __init__(self, h5f):
         self.events = {k: h5f[f"events/{k}"] for k in ("p", "x", "y", "t")}
@@ -66,29 +74,29 @@ class EventSlicer:
         return out
 
 
-def load_flow_png(path: Path) -> Tuple[np.ndarray, np.ndarray]:
-    """DSEC 16-bit flow PNG -> ([2, H, W] f32 (y, x) flow, [H, W] valid)."""
-    from ..utils.png16 import read_png_rgb
-
-    raw = read_png_rgb(Path(path)).astype(np.float32)
-    flow = np.zeros((2, raw.shape[0], raw.shape[1]), np.float32)
-    flow[0] = (raw[..., 1] - 2 ** 15) / 128.0
-    flow[1] = (raw[..., 0] - 2 ** 15) / 128.0
-    return flow, raw[..., 2].astype(bool)
-
-
 class DsecSequence:
-    """One DSEC sequence for phase 'train' or 'val'."""
+    """One DSEC sequence for phase 'train', 'val' or 'test'.
+
+    'test' reads its windows from `timestamp_path`, a benchmark CSV
+    (from_timestamp_us, to_timestamp_us, file_index), and has no GT flow.
+    With `event_file` (an opened events.h5, or a mapping of numpy arrays
+    under its keys, see `EventSlicer`) and `rectify_map` ([480, 640, 2]
+    f32) the sequence reads those instead of the files under
+    events/left/; `seq_path` then only names it for phase 'test'.
+    """
 
     def __init__(self, seq_path: Path, phase: str = "train",
-                 num_bins: int = 15, polarity_aware_batching: bool = False,
+                 num_bins: int = 15, timestamp_path: Optional[str] = None,
+                 polarity_aware_batching: bool = False,
                  host_voxelize: bool = False,
                  voxel_norm_type: Optional[str] = "mean_std",
-                 voxel_quantile: float = 0.0):
-        import h5py
-
+                 voxel_quantile: float = 0.0,
+                 event_file: Optional[Mapping] = None,
+                 rectify_map: Optional[np.ndarray] = None):
         seq_path = Path(seq_path)
-        if not seq_path.is_dir():
+        if (event_file is None) != (rectify_map is None):
+            raise ValueError("event_file and rectify_map go together")
+        if event_file is None and not seq_path.is_dir():
             raise FileNotFoundError(seq_path)
         self.name = seq_path.name
         self.num_bins = num_bins
@@ -99,19 +107,29 @@ class DsecSequence:
         self.height, self.width = HEIGHT, WIDTH
         self.t_bins = np.linspace(0, 1, num_bins + 1)
 
-        ev_dir = seq_path / "events/left"
-        self._h5f = h5py.File(ev_dir / "events.h5", "r")
-        self._finalizer = weakref.finalize(self, self._h5f.close)
-        self.event_slicer = EventSlicer(self._h5f)
-        with h5py.File(ev_dir / "rectify_map.h5", "r") as rf:
-            self.rectify_ev_map = rf["rectify_map"][()]
+        if phase not in ("train", "val", "test"):
+            raise ValueError(f"unknown phase {phase!r} (train, val, test)")
+        if phase == "test" and timestamp_path is None:
+            raise ValueError("phase 'test' needs the timestamp CSV "
+                             "(timestamp_path)")
+        if event_file is None:
+            import h5py
+
+            ev_dir = seq_path / "events/left"
+            event_file = h5py.File(ev_dir / "events.h5", "r")
+            self._finalizer = weakref.finalize(self, event_file.close)
+            with h5py.File(ev_dir / "rectify_map.h5", "r") as rf:
+                rectify_map = rf["rectify_map"][()]
+        self.event_slicer = EventSlicer(event_file)
+        self.rectify_ev_map = rectify_map
         self._rectify_f32 = None
+        self.paths_to_forward_flow: Optional[List[Path]] = None
         if phase == "train":
             self._load_train(seq_path)
         elif phase == "val":
             self._load_val(seq_path)
         else:
-            raise ValueError(f"phase {phase!r} is not ported (train, val)")
+            self._load_test(timestamp_path)
 
     def _load_train(self, seq_path: Path):
         ts_img = np.loadtxt(seq_path / "images/timestamps.txt", dtype="int64")
@@ -137,6 +155,16 @@ class DsecSequence:
         self.paths_to_forward_flow = [seq_path / "flow/forward" / f
                                       for f in files]
         self.indices = [int(f.split(".")[0]) for f in files]
+
+    def _load_test(self, timestamp_path: str):
+        """Windows and file indices of a benchmark CSV (its rows have a
+        space after each comma)."""
+        with open(timestamp_path) as fh:
+            rows = [(int(r["from_timestamp_us"]), int(r["to_timestamp_us"]),
+                     int(r["file_index"])) for r in csv.DictReader(fh)]
+        table = np.asarray(rows, dtype="int64").reshape(-1, 3)
+        self.timestamps_flow = table[:, :2]
+        self.indices = table[:, 2]
 
     def __len__(self) -> int:
         return len(self.timestamps_flow)
@@ -184,9 +212,11 @@ class DsecSequence:
             out["neg_events"] = events[events[:, 3] == 0]
         else:
             out["events"] = events
-        flow_path = Path(self.paths_to_forward_flow[index])
-        if flow_path.exists():
-            out["forward_flow"], out["flow_valid"] = load_flow_png(flow_path)
+        if self.paths_to_forward_flow is not None:
+            flow_path = Path(self.paths_to_forward_flow[index])
+            if flow_path.exists():
+                out["forward_flow"], out["flow_valid"] = load_flow_png(
+                    flow_path)
         return out
 
 

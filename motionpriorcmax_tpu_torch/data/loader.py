@@ -8,6 +8,8 @@ and the LUT-cell sort, with the native C++ ops, which release the GIL too
 samples in the pool while it stacks the current one, optionally into
 pinned host memory, and hands numpy batches to the consumer through a
 bounded queue, so the host prepares batches while the card runs steps.
+With capacity buckets a sample's share waits until its batch is read:
+the batch's largest sample sets the capacity (`collate.bucket_capacities`).
 """
 
 from __future__ import annotations
@@ -16,11 +18,11 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
-from .collate import prepare_sample, stack_samples
+from .collate import bucket_capacities, prepare_sample, stack_samples
 
 
 def pinned_empty(shape, dtype) -> np.ndarray:
@@ -43,11 +45,15 @@ class DataLoader:
                  seed: int = 0, prefetch: int = 2,
                  collate_fn: Optional[Callable] = None,
                  lut_cell_sort_params: Optional[tuple] = None,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False,
+                 capacity_buckets: Optional[Sequence[int]] = None):
         """`collate_fn(samples) -> batch` replaces the fixed-capacity
         collate and then runs in the producer thread; `pin_memory` stacks
         the default collate's arrays into pinned host memory (for a card:
-        training/loop.py::to_device then copies them asynchronously)."""
+        training/loop.py::to_device then copies them asynchronously);
+        `capacity_buckets` (ascending) pads each batch to the smallest
+        bucket covering its largest sample instead of `capacity` (with
+        polarity_aware, each half at half the bucket)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -61,17 +67,27 @@ class DataLoader:
                                 pos_capacity=pos_capacity,
                                 lut_cell_sort_params=lut_cell_sort_params)
         self._alloc = pinned_empty if pin_memory else None
+        self.capacity_buckets = (None if capacity_buckets is None
+                                 else tuple(capacity_buckets))
         self._epoch = 0
 
     def _fetch(self, idx: int):
-        """A pool task: the sample, prepared unless a collate_fn is given."""
+        """A pool task: the sample, prepared unless a collate_fn is given
+        or the capacity waits for the batch (buckets)."""
         sample = self.dataset[idx]
-        return sample if self.collate_fn else prepare_sample(
-            sample, **self._collate_kw)
+        if self.collate_fn or self.capacity_buckets is not None:
+            return sample
+        return prepare_sample(sample, **self._collate_kw)
 
-    def _stack(self, items) -> Dict[str, np.ndarray]:
+    def _stack(self, items, pool) -> Dict[str, np.ndarray]:
         if self.collate_fn:
             return self.collate_fn(items)
+        if self.capacity_buckets is not None:
+            kw = dict(self._collate_kw)
+            if "events" in items[0] or "pos_events" in items[0]:
+                kw["capacity"], kw["pos_capacity"] = bucket_capacities(
+                    items, self.capacity_buckets, kw["polarity_aware"])
+            items = list(pool.map(lambda s: prepare_sample(s, **kw), items))
         return stack_samples(items, self._alloc)
 
     def __len__(self) -> int:
@@ -104,10 +120,11 @@ class DataLoader:
                                         for j in idxs])
                         if len(pending) > 1:
                             out_q.put(self._stack(
-                                [f.result() for f in pending.popleft()]))
+                                [f.result() for f in pending.popleft()],
+                                pool))
                     while pending and not stop.is_set():
                         out_q.put(self._stack(
-                            [f.result() for f in pending.popleft()]))
+                            [f.result() for f in pending.popleft()], pool))
                 out_q.put(None)
             except BaseException as exc:      # re-raised by the consumer
                 out_q.put(exc)

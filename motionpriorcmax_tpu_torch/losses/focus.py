@@ -3,9 +3,11 @@
 
 Per step:
   1. reconstruction times: t_ref, then the bin midpoints
-  2. exact K nearest trajectories of every superpixel-LUT cell at each
-     bin's midtime (`ops/knn.py`), or with knn_method='softmax' the banded
-     exponential-kernel interpolation (the softmax-interp kernels)
+  2. the K nearest trajectories of every superpixel-LUT cell at each bin's
+     midtime (`ops/knn.py`: over all of them, or in a spatial-hash window
+     with knn_method 'grid' / 'grid_approx'), or with knn_method='softmax'
+     the exponential-kernel interpolation (l2: the banded softmax-interp
+     kernels; l1: blockwise in plain PyTorch)
   3. per-cell flow to t_ref: mean (or inverse-distance) over the K
   4. per-event flow lookup by (bin, y // s, x // s) and warp: the LUT-gather
      kernels when events arrive cell-sorted (`cell_ends`)
@@ -27,28 +29,35 @@ import torch
 
 from ..ops import events as ev_ops
 from ..ops import gradients as grad_ops
+from ..device import no_tf32
 from ..ops.cuda.softmax_interp import softmax_interp
-from ..ops.knn import knn_blocked
+from ..ops.knn import knn_blocked, knn_grid_window
 
 EPS = 1e-9
+KNN_METHODS = ("exact", "approx", "grid", "grid_approx", "softmax")
 
 
 @dataclasses.dataclass(frozen=True)
 class FocusLossConfig:
     """The JAX config's field names, so YAML files translate unchanged.
 
-    `knn_method` is 'exact' (the K nearest trajectories, ops/knn.py) or
-    'softmax' (`_softmax_interpolate_flow`, l2 only); 'approx', 'grid' and
-    'grid_approx' raise NotImplementedError.  The softmax fields
-    (`softmax_temp`, `interp_band_px`, `interp_band_dynamic` False / True /
-    'per_group', `interp_band_per_bin`, `interp_cross` None / 'vpu' /
-    'mxu', `interp_exp_dtype` 'float32' / 'bfloat16') act as in the JAX
-    package's Pallas branch.  `use_pallas_interp` is read and ignored: the
-    port always computes the TPU kernel's function, which JAX runs only on
-    a TPU by default.  The remaining TPU tiling fields (`knn_block_size`,
-    `iwe_impl`, `vote_band_px`, `lut_gather_impl`, `segsum_gather_impl`)
-    have no effect: the vote and the sorted LUT gather always run the
-    port's kernels, and the KNN bounds its blocks by memory.
+    `knn_method` is 'exact' or 'approx' (the K nearest trajectories,
+    ops/knn.py; 'approx' is exact, as JAX's lax.approx_min_k is off the
+    TPU), 'grid' or 'grid_approx' (the K nearest in the spatial-hash
+    window of each LUT cell: cell size = superpixel, grid = (Hq, Wq)), or
+    'softmax' (`_softmax_interpolate_flow`).  For softmax with dist_norm
+    l2 the fields `softmax_temp`, `interp_band_px`, `interp_band_dynamic`
+    False / True / 'per_group', `interp_band_per_bin`, `interp_cross` None
+    / 'vpu' / 'mxu' and `interp_exp_dtype` 'float32' / 'bfloat16' act as
+    in the JAX package's Pallas branch; `use_pallas_interp` is read and
+    ignored: the port always computes the TPU kernel's function, which
+    JAX runs only on a TPU by default.  With dist_norm l1 it computes the
+    JAX package's blockwise path, which JAX runs on every backend for l1
+    (`softmax_interp_l1`: no band, queries in blocks of `knn_block_size`).
+    The remaining TPU tiling fields (`iwe_impl`, `vote_band_px`,
+    `lut_gather_impl`, `segsum_gather_impl`) have no effect: the vote and
+    the sorted LUT gather always run the port's kernels, and the KNN
+    bounds its blocks by memory.
     """
 
     image_shape: Tuple[int, int] = (480, 640)
@@ -83,14 +92,11 @@ class FocusLossConfig:
     segsum_gather_impl: Optional[str] = None
 
     def __post_init__(self):
-        if self.knn_method not in ("exact", "softmax"):
-            raise NotImplementedError(
-                f"knn_method={self.knn_method!r} is not ported; the port "
-                "runs 'exact' and 'softmax'")
-        if self.knn_method == "softmax" and self.dist_norm != "l2":
-            raise NotImplementedError(
-                f"knn_method='softmax' with dist_norm={self.dist_norm!r}: "
-                "the softmax interpolation is l2 only")
+        if self.knn_method not in KNN_METHODS:
+            raise ValueError(f"unknown knn_method {self.knn_method!r} "
+                             f"({', '.join(KNN_METHODS)})")
+        if self.dist_norm not in ("l2", "l1"):
+            raise ValueError(f"unknown dist_norm {self.dist_norm!r}")
         if (isinstance(self.interp_band_dynamic, str)
                 and self.interp_band_dynamic != "per_group"):
             raise ValueError(
@@ -173,10 +179,19 @@ def interpolate_flow(cfg: FocusLossConfig, traj_at_tref: torch.Tensor,
 
     # KNN per (batch, bin), on positions without gradient (the indices are
     # integers; the reference's KeOps argKmin).
+    windowed = cfg.knn_method.startswith("grid")
+    db = traj_at_tmid.detach().reshape(b * n_bins, n, 2)
     with torch.no_grad():
-        idx, dist = knn_blocked(grid_points,
-                                traj_at_tmid.detach().reshape(b * n_bins, n, 2),
-                                cfg.num_knn, norm=cfg.dist_norm)
+        if windowed:
+            idx, dist = knn_grid_window(
+                grid_points, db, cfg.num_knn, norm=cfg.dist_norm,
+                cell_size=float(s), grid_hw=(hq, wq),
+                method="approx" if cfg.knn_method.endswith("approx")
+                else "exact")
+        else:
+            idx, dist = knn_blocked(grid_points, db, cfg.num_knn,
+                                    norm=cfg.dist_norm,
+                                    method=cfg.knn_method)
     k = idx.shape[-1]
     idx = idx.reshape(b, n_bins, -1, k)
     dist = dist.reshape(b, n_bins, -1, k)
@@ -186,8 +201,15 @@ def interpolate_flow(cfg: FocusLossConfig, traj_at_tref: torch.Tensor,
                     - traj_at_tmid[:, :, :, None, :])
     flow_k = _gather_traj(flow_to_tref, idx)      # [B, T, Q, K, n_tref, 2]
     if k == 1 or cfg.interpolation_scheme == "mean":
-        flow_q = flow_k.sum(dim=3) / float(k)
+        if windowed:
+            # The window's empty slots (+inf distance) take no part.
+            fmask = torch.isfinite(dist)[..., None, None].to(flow_k.dtype)
+            flow_q = (flow_k * fmask).sum(dim=3) / torch.clamp(
+                fmask.sum(dim=3), min=1.0)
+        else:
+            flow_q = flow_k.sum(dim=3) / float(k)
     elif cfg.interpolation_scheme == "iwd":
+        # 1 / (inf + EPS) = 0: the window's empty slots weigh nothing.
         dw = 1.0 / (dist + EPS)
         dw = dw / torch.clamp(dw.sum(dim=3, keepdim=True), min=EPS)
         flow_q = torch.sum(dw[..., None, None] * flow_k, dim=3)
@@ -273,11 +295,15 @@ def _softmax_interpolate_flow(cfg: FocusLossConfig, grid_points: torch.Tensor,
             [diff_next, torch.zeros_like(diff_next[:, :1])], dim=1)], dim=-1)
     c = values.shape[-1]
     db = traj_at_tmid.detach().reshape(b * n_bins, n, 2).contiguous()
-    out = softmax_interp(
-        grid_points, db, values.reshape(b * n_bins, n, c).contiguous(),
-        float(cfg.softmax_temp), interp_band(cfg, grid_points, db, b, n_bins,
-                                             wq),
-        cfg.interp_exp_dtype, cfg.interp_cross or "vpu")
+    vals = values.reshape(b * n_bins, n, c).contiguous()
+    if cfg.dist_norm == "l1":
+        out = softmax_interp_l1(grid_points, db, vals,
+                                float(cfg.softmax_temp), cfg.knn_block_size)
+    else:
+        out = softmax_interp(
+            grid_points, db, vals, float(cfg.softmax_temp),
+            interp_band(cfg, grid_points, db, b, n_bins, wq),
+            cfg.interp_exp_dtype, cfg.interp_cross or "vpu")
     out = out.reshape(b, n_bins, hq, wq, c)
     flow_lut = out[..., :n_tref * 2].reshape(b, n_bins, hq, wq, n_tref, 2)
     flow_to_next = None
@@ -285,6 +311,96 @@ def _softmax_interpolate_flow(cfg: FocusLossConfig, grid_points: torch.Tensor,
         flow_to_next = out[:, :-1, :, :, n_tref * 2:].reshape(
             b, n_bins - 1, hq, wq, 1, 2)
     return flow_lut, flow_to_next
+
+
+# Weight entries per block of softmax_interp_l1: [groups, queries, N] f32,
+# 256 MiB.
+L1_BLOCK_ELEMS = 1 << 26
+
+
+def _l1_weights(qb: torch.Tensor, db: torch.Tensor, temp: float
+                ) -> torch.Tensor:
+    """[Gb, Qb, N] f32 weights exp(-(d - min_n d) / temp) of the L1
+    distances d of queries qb [Qb, 2] to db [Gb, N, 2], the exponent
+    rounded to bf16 (JAX focus.py:423-432).
+
+    JAX writes exp(z.astype(bf16)).astype(f32), but XLA keeps the exp's
+    f32 result (excess precision, its default): the weights it computes
+    are the f32 exp of the rounded exponent, within an f32 ulp of these;
+    a bf16 result would differ from them by up to 0.4%."""
+    dist = (qb[None, :, None, 0] - db[:, None, :, 0]).abs_()
+    dist += (qb[None, :, None, 1] - db[:, None, :, 1]).abs_()
+    # -(d - min) / temp, in place: (d - min) / -temp has the same bits.
+    z = dist.sub_(dist.amin(dim=-1, keepdim=True)).div_(-temp)
+    return z.to(torch.bfloat16).to(torch.float32).exp_()
+
+
+def _l1_blocks(g: int, q: int, n: int, block_size: int):
+    """(group slice, query slice) pairs covering [G, Q]: queries in blocks
+    of at most `block_size`, groups so that a block's weights stay within
+    L1_BLOCK_ELEMS."""
+    qb = max(1, min(block_size, q))
+    gb = max(1, L1_BLOCK_ELEMS // max(qb * n, 1))
+    for g0 in range(0, g, gb):
+        for q0 in range(0, q, qb):
+            yield slice(g0, g0 + gb), slice(q0, q0 + qb)
+
+
+class _SoftmaxInterpL1(torch.autograd.Function):
+    """out = (a @ vals) / sum_n a per query block, a from `_l1_weights`;
+    the weights carry no gradient and are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, queries, db, vals, temp, block_size):
+        g, n, c = vals.shape
+        q = queries.shape[0]
+        out = vals.new_empty(g, q, c)
+        den = vals.new_empty(g, q, 1)
+        with no_tf32():
+            for gs, qs in _l1_blocks(g, q, n, block_size):
+                a = _l1_weights(queries[qs], db[gs], temp)
+                den[gs, qs] = a.sum(dim=-1, keepdim=True)
+                out[gs, qs] = torch.bmm(a, vals[gs]) / den[gs, qs]
+        ctx.save_for_backward(queries, db, den)
+        ctx.temp, ctx.block_size, ctx.shape = temp, block_size, (g, n, c)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        queries, db, den = ctx.saved_tensors
+        g, n, c = ctx.shape
+        d_vals = grad_out.new_zeros(g, n, c)
+        with no_tf32():
+            for gs, qs in _l1_blocks(g, queries.shape[0], n, ctx.block_size):
+                a = _l1_weights(queries[qs], db[gs], ctx.temp)
+                d_vals[gs] += torch.bmm(a.transpose(1, 2),
+                                        grad_out[gs, qs] / den[gs, qs])
+        return None, None, d_vals, None, None
+
+
+def softmax_interp_l1(queries: torch.Tensor, db: torch.Tensor,
+                      vals: torch.Tensor, temp: float, block_size: int = 1024
+                      ) -> torch.Tensor:
+    """The exponential-kernel interpolation with L1 distances (JAX:
+    losses/focus.py:398-441, the blockwise path, which JAX runs for
+    dist_norm l1 on every backend): per group g and query q,
+
+        a[n] = exp(bf16(-(|q - db[g, n]|_1 - min_n |q - db[g, n]|_1) / temp))
+        (the exp in f32 of the bf16-rounded exponent, see `_l1_weights`)
+        out[g, q] = sum_n a[n] vals[g, n] / sum_n a[n]
+
+    over all N points (no band), the value product and the normalization
+    in f32.  Plain PyTorch in blocks of `block_size` queries (not a kernel
+    row: JAX's Pallas kernel is l2 only).  Gradients reach `vals` only.
+
+    Args:
+      queries: [Q, 2]; db: [G, N, 2]; vals: [G, N, C].
+
+    Returns:
+      [G, Q, C] f32.
+    """
+    return _SoftmaxInterpL1.apply(queries, db.detach(), vals, float(temp),
+                                  int(block_size))
 
 
 def lut_indices(cfg: FocusLossConfig, events: torch.Tensor, n_bins: int,

@@ -1,5 +1,6 @@
 """Flow and trajectory metrics (JAX: motionpriorcmax_tpu/metrics/)."""
 
 from .core import MetricBank
+from .error_calculator import OpticalFlowError, make_error_calculator
 
-__all__ = ["MetricBank"]
+__all__ = ["MetricBank", "OpticalFlowError", "make_error_calculator"]

@@ -5,7 +5,12 @@ UNet (the flow model): `flax_unet_to_torch` turns JAX UNet variables into
 the port's state_dict, the inverse of JAX `torch_unet_to_flax`;
 `save_checkpoint` / `restore_checkpoint` keep the port's training state in
 torch.save format with best-k retention on a monitored metric (orbax
-checkpoints of the JAX package are not read).
+checkpoints of the JAX package are not read).  `load_flow_model_weights`
+fills a TrajectoryModel from any of the four sources that dsec-infer
+takes (a reference .pth / .ckpt, an .npz in the JAX package's
+'params/...' layout or in the torch-key layout, a flow-train checkpoint
+directory); `flow_model_torch_keys` gives the torch-key layout that
+extract-weights writes.
 
 RAFT-Spline (JAX: training/checkpoint.py:134-295):
 
@@ -227,6 +232,116 @@ def flax_unet_to_torch(params: Mapping[str, Any],
     return sd
 
 
+def unflatten_model_weights(flat: Mapping[str, np.ndarray]
+                            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """{'params/a/b': array, 'batch_stats/...': array} (JAX
+    `flatten_model_weights`, as its extract-weights writes them) ->
+    (params, batch_stats) nested dicts."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = {"params": params, "batch_stats": stats}[parts[0]]
+        for p in parts[1:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return params, stats
+
+
+def flax_basis_mlp_to_torch(params: Mapping[str, Any]
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX BasisMLP params (Dense_i kernel [in, out], bias) -> the port's
+    BasisMLP state_dict (layers.i.weight [out, in], bias)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for i in range(len(params)):
+        dense = params[f"Dense_{i}"]
+        sd[f"layers.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.array(dense["kernel"], np.float32).T))
+        sd[f"layers.{i}.bias"] = torch.from_numpy(
+            np.array(dense["bias"], np.float32))
+    return sd
+
+
+_MLP = "basis_mlp."
+
+
+def flow_model_torch_keys(model_state: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """A TrajectoryModel state_dict in the torch-key layout: the UNet under
+    the reference's names ('unet.' dropped, as the reference Lightning
+    checkpoint has them after 'model.' is stripped), the learned basis MLP
+    under 'basis_mlp.'."""
+    return {(k[len("unet."):] if k.startswith("unet.") else k): v
+            for k, v in model_state.items()}
+
+
+def _load_torch_keys(model: torch.nn.Module,
+                     state: Mapping[str, torch.Tensor]) -> None:
+    """Load the torch-key layout into a TrajectoryModel strictly; a missing
+    BatchNorm `num_batches_tracked` counts as 0 (flax keeps none)."""
+    unet = {k: v for k, v in state.items() if not k.startswith(_MLP)}
+    mlp = {k[len(_MLP):]: v for k, v in state.items() if k.startswith(_MLP)}
+    for key in model.unet.state_dict():
+        if key.endswith("num_batches_tracked") and key not in unet:
+            unet[key] = torch.zeros((), dtype=torch.long)
+    model.unet.load_state_dict(unet, strict=True)
+    if model.basis_mlp is not None:
+        model.basis_mlp.load_state_dict(mlp, strict=True)
+    elif mlp:
+        raise ValueError("the weights carry a learned basis MLP; the "
+                         "config's basis_type is not 'learned'")
+
+
+def load_flow_model_weights(model: torch.nn.Module, ckpt_path: str,
+                            step: Optional[int] = None) -> str:
+    """Fill a TrajectoryModel (UNet and, for the learned basis, its MLP)
+    from `ckpt_path`, strictly; returns what was loaded.
+
+      *.pth / *.ckpt: a reference checkpoint, 'model.' stripped
+        (`extract_model_weights`): the UNet under the reference's names;
+      *.npz, every key under 'params/' or 'batch_stats/': JAX-trained
+        weights (JAX `flatten_model_weights`, its extract-weights), through
+        `unflatten_model_weights` and `flax_unet_to_torch`;
+      *.npz otherwise: the torch-key layout (`flow_model_torch_keys`, this
+        package's extract-weights, or a Lightning checkpoint's);
+      a directory: a checkpoint of this package's flow-train, the workdir
+        or its checkpoints/: `step`, else the best-metric one, else the
+        latest.
+
+    Raises ValueError for any other path, and FileNotFoundError for a
+    directory without a checkpoint.
+    """
+    path = str(ckpt_path)
+    if path.endswith((".pth", ".ckpt")):
+        _load_torch_keys(model, extract_model_weights(path))
+        return f"reference weights {path}"
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            flat = {k: npz[k] for k in npz.files}
+        if all(k.split("/")[0] in ("params", "batch_stats") for k in flat):
+            params, stats = unflatten_model_weights(flat)
+            state = dict(flax_unet_to_torch(params["unet"], stats["unet"]))
+            for k, v in flax_basis_mlp_to_torch(
+                    params.get("basis_mlp", {})).items():
+                state[_MLP + k] = v
+            _load_torch_keys(model, state)
+            return f"JAX weights {path}"
+        _load_torch_keys(model, {k: torch.from_numpy(v)
+                                 for k, v in flat.items()})
+        return f"torch-key weights {path}"
+    if Path(path).is_dir():
+        ckpt_dir = find_checkpoint_dir(path)
+        if ckpt_dir is None:
+            raise FileNotFoundError(
+                f"{path!r}: no index.json and step_*.pt of flow-train here "
+                "or in its checkpoints/ (orbax checkpoints of the JAX "
+                "package are not read: use its extract-weights)")
+        step = restore_model_weights(str(ckpt_dir), model, step, best=True)
+        return f"checkpoint {ckpt_dir} @ step {step}"
+    raise ValueError(f"{path!r} is not a .pth/.ckpt, .npz, or a flow-train "
+                     "checkpoint directory")
+
+
 # -- the port's checkpoints ----------------------------------------------------
 
 _INDEX = "index.json"
@@ -314,16 +429,25 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
     return state, step
 
 
+def checkpoint_model_state(ckpt_dir: str, step: Optional[int] = None,
+                           best: bool = False, map_location="cpu"
+                           ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The model state_dict of a `save_checkpoint` checkpoint and its step:
+    the latest step unless `step` or `best` says otherwise, as
+    `restore_checkpoint`."""
+    path = Path(ckpt_dir)
+    step = _pick_step(path, step, best)
+    blob = torch.load(path / f"step_{step}.pt", map_location=map_location,
+                      weights_only=True)
+    return blob["model"], step
+
+
 def restore_model_weights(ckpt_dir: str, model: torch.nn.Module,
                           step: Optional[int] = None, best: bool = False
                           ) -> int:
     """Load only the model of a `save_checkpoint` checkpoint, strictly (the
-    latest step unless `step` or `best` says otherwise, as
-    `restore_checkpoint`).  Returns the step."""
-    path = Path(ckpt_dir)
-    step = _pick_step(path, step, best)
-    device = next(model.parameters()).device
-    blob = torch.load(path / f"step_{step}.pt", map_location=device,
-                      weights_only=True)
-    model.load_state_dict(blob["model"], strict=True)
+    step as `checkpoint_model_state` picks it).  Returns the step."""
+    state, step = checkpoint_model_state(
+        ckpt_dir, step, best, map_location=next(model.parameters()).device)
+    model.load_state_dict(state, strict=True)
     return step

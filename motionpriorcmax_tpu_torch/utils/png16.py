@@ -1,8 +1,10 @@
-"""16-bit RGB PNG reading for the DSEC flow files (JAX: utils/png16.py,
-read side only; the port's own copy).
+"""16-bit RGB PNG codec for the DSEC flow files (JAX: utils/png16.py; the
+port's own copy).
 
-Color type 2, bit depth 8 or 16, all five scanline filters; no PIL (PIL
-narrows 16-bit RGB on read).
+Writes color type 2 at bit depth 16 with filter 0 and zlib level 6, the
+same bytes as the JAX writer; reads color type 2 at bit depth 8 or 16 with
+all five scanline filters.  No PIL: it cannot encode 16-bit RGB and
+narrows it on read.
 """
 
 from __future__ import annotations
@@ -12,6 +14,27 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+
+def write_png16_rgb(path: Path, arr: np.ndarray) -> None:
+    """Write [H, W, 3] uint16 as a 16-bit RGB PNG (filter type 0)."""
+    if arr.dtype != np.uint16 or arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] uint16, got {arr.dtype} "
+                         f"{arr.shape}")
+    h, w, _ = arr.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0)
+    # Each scanline: filter byte 0, then the row's big-endian samples.
+    rows = np.zeros((h, 1 + w * 6), np.uint8)
+    rows[:, 1:] = arr.astype(">u2").view(np.uint8).reshape(h, w * 6)
+    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+           + chunk(b"IEND", b""))
+    Path(path).write_bytes(png)
 
 
 def read_png_rgb(path: Path) -> np.ndarray:

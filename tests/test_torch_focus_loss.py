@@ -226,10 +226,12 @@ def test_config_propagation_and_unported_knn():
         raw = yaml.safe_load(fh)
     assert propagate_config(copy.deepcopy(raw)) == jax_propagate(
         copy.deepcopy(raw))
-    for method in ("approx", "grid", "grid_approx"):
-        with pytest.raises(NotImplementedError):
-            FocusLossConfig(knn_method=method)
-    # The softmax interpolation is ported for the l2 distance only.
-    FocusLossConfig(knn_method="softmax")
-    with pytest.raises(NotImplementedError, match="l2 only"):
-        FocusLossConfig(knn_method="softmax", dist_norm="l1")
+    # Every knn_method of the JAX package is ported, softmax with both
+    # distances; an unknown method or distance is refused.
+    for method in ("exact", "approx", "grid", "grid_approx", "softmax"):
+        for norm in ("l2", "l1"):
+            FocusLossConfig(knn_method=method, dist_norm=norm)
+    with pytest.raises(ValueError, match="knn_method"):
+        FocusLossConfig(knn_method="keops")
+    with pytest.raises(ValueError, match="dist_norm"):
+        FocusLossConfig(knn_method="softmax", dist_norm="l3")
