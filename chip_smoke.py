@@ -181,6 +181,32 @@ Phases, one or more lines each; any failure exits non-zero:
  37. one batch through the DataLoader with capacity buckets (2^19, 2^20)
      from 14 windows of 300,000 events: 2^18 per polarity half, 2^19 in
      all; train_flow's softmax / device-voxel step on it
+  flow-train's epoch image panels (dsec.yaml's shapes, phase 8's windows
+  with GT flow):
+ 38. one train_flow epoch (1 train step, the panel of 5 of the 14 windows,
+     the val pass), each panel sample collated alone as the CLI's val
+     loader collates it (DataLoader.collate: capacity 2^20, polarity
+     packing, LUT-cell sort): the 25 PNGs named as the JAX package names
+     them and read back as 480x640 RGB, ms per render, collate and
+     colorize + PNG, launches per render (5 vote forwards, 1 LUT gather);
+     then the same with knn_method softmax and the voxel grid voted in the
+     render (+2 softmax forwards, +1 voxel vote)
+ 39. card vs CPU: one sample's render at the test geometry (f32 UNet),
+     exact KNN with the host voxel and softmax with the device voxel
+  RAFT-Spline with model.compute_dtype and model.corr_dtype bfloat16:
+ 40. traj-val: phase 5 with the bf16 model (latency, samples/s, peak
+     memory, 12 launches per request, TF32 off beside the bf16 convs);
+     then the fused lookup (row 1) on a request's bf16 pyramid against its
+     plain version, its card time beside the same windows on the volumes
+     widened to f32, and its bytes bound
+ 41. traj-train: phase 21's loop with the bf16 model on its batch (step
+     ms, peak memory, 12 + 48 corr-window launches per step, a loss that
+     moves); then the backward kernel (row 2) on the step's bf16 pyramid,
+     level by level, against its plain version, and its card time beside
+     the same on f32 volumes
+ 42. card vs CPU: the bf16 model at the test geometry, its forward and one
+     self-supervised raft_train_step (loss, the gradients' cosine), with
+     the tolerances of tests/test_torch_raft_bf16.py
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -463,7 +489,7 @@ def tf32_flags(torch):
             torch.backends.cudnn.allow_tf32)
 
 
-def phase_serving(torch, model, requests, ts):
+def phase_serving(torch, model, requests, ts, tag="serving"):
     """Time raft_validation_step from host batch to metrics; returns the
     kernel's launch count over the run."""
     from motionpriorcmax_tpu_torch.metrics import MetricBank
@@ -496,7 +522,7 @@ def phase_serving(torch, model, requests, ts):
         if i > 0:                      # request 0 is the warm-up
             lat.append(dt)
             bank.update_device(logs)
-        print(f"[serving] request {i}{' (warm-up)' if i == 0 else ''}: "
+        print(f"[{tag}] request {i}{' (warm-up)' if i == 0 else ''}: "
               f"{dt * 1e3:.1f} ms, corr_window launches {per_request[-1]}")
     launches = cw.corr_window_lookup.launches
     peak = torch.cuda.max_memory_allocated()
@@ -509,13 +535,15 @@ def phase_serving(torch, model, requests, ts):
     if not all(np.isfinite(v) for v in results.values()):
         fail("non-finite metrics in the bank")
     if seen != {(False, False)}:
-        fail(f"the f32 forward ran with TF32 flags (matmul, cudnn) {seen}")
+        fail(f"the forward ran with TF32 flags (matmul, cudnn) {seen}")
     mean = float(np.mean(lat))
-    print(f"[serving] Tab2L5 B={BATCH} {H}x{W} f32, 12 iterations: latency "
+    mc = model.cfg
+    print(f"[{tag}] Tab2L5 B={BATCH} {H}x{W} compute {mc.compute_dtype}, "
+          f"corr {mc.corr_dtype}, 12 iterations: latency "
           f"mean {mean * 1e3:.1f} ms over {len(lat)} requests "
           f"({', '.join(f'{x * 1e3:.1f}' for x in lat)}), "
           f"{BATCH / mean:.2f} samples/s, peak memory {peak / 2**30:.2f} GiB")
-    print(f"[serving] {len(results)} metrics finite; val/masked_TEPE="
+    print(f"[{tag}] {len(results)} metrics finite; val/masked_TEPE="
           f"{results['val/masked_TEPE']:.4f} val/epe={results['val/epe']:.4f}; "
           f"TF32 (matmul, cudnn) inside the forward: {sorted(seen)}")
     return launches
@@ -778,7 +806,7 @@ def phase_flow_batch(cfg, loss_cfg, batch_size):
              if k not in ("forward_flow", "flow_valid")}
     unsorted_train = {k: v for k, v in unsorted.items()
                       if k not in ("forward_flow", "flow_valid")}
-    return train, batch, unsorted_train, unsorted
+    return train, batch, unsorted_train, unsorted, samples
 
 
 def vote_inputs(torch, events, npos, seed, flow_scale=1.0):
@@ -2385,7 +2413,8 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
         rate = (f"{b * m / mean:.4g} events/s padded ({valid / mean:.4g} "
                 "valid)")
         what = f"knn_method {loss_cfg.knn_method}, capacity {m}"
-    print(f"[{tag}] Tab2L5 B={b} {H}x{W} f32, {cfg.iters} iterations, {what}: "
+    print(f"[{tag}] Tab2L5 B={b} {H}x{W} compute {cfg.compute_dtype}, corr "
+          f"{cfg.corr_dtype}, {cfg.iters} iterations, {what}: "
           f"step mean {mean * 1e3:.1f} ms over {len(timed)} steps "
           f"({', '.join(f'{x * 1e3:.1f}' for x in timed)}), {rate}, peak "
           f"memory {peak / 2**30:.2f} GiB, idle share {idle}; context BN "
@@ -2559,23 +2588,12 @@ def phase_traj_breakdown(torch, cfg_tree, host_batch, tag="traj-breakdown",
                   "launches")
 
 
-def phase_traj_card_vs_cpu(torch):
-    """Phase 24: one f32 raft_train_step and one supervised step at the
-    test geometry, on the CPU (plain versions) and on the card (kernels),
-    same weights, batch and t_ref: loss, gradients, BN statistics."""
+def tiny_traj_batches(cfg, h, w):
+    """The self-supervised (B=2, 1500 events per sample in capacity 2048,
+    cell-sorted) and supervised (3 GT steps) host batches of the test
+    geometry."""
     from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
-    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
-    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
-    from motionpriorcmax_tpu_torch.training import raft_spline as trs
-    from motionpriorcmax_tpu_torch.training.loop import to_device
 
-    h = w = 32
-    cfg = RAFTSplineConfig(nbins_context=5, nbins_correlation=3,
-                           bezier_degree=2, ev_target_indices=(2, 4),
-                           ev_levels=(1, 2), iters=2)
-    loss_cfg = FocusLossConfig(image_shape=(h, w), num_bins=5, num_knn=4,
-                               smooth_weight=0.01, lut_superpixel_size=4,
-                               smooth_type="on_flow_to_next")
     rng = np.random.default_rng(61)
     samples = []
     for _ in range(2):
@@ -2596,6 +2614,26 @@ def phase_traj_card_vs_cpu(torch):
                   "flow_timestamps": np.tile(np.float32([1 / 3, 2 / 3, 1]),
                                              (2, 1)),
                   "flow_valid": rng.random((2, 3, h, w)) > 0.2}
+    return selfsup, supervised
+
+
+def phase_traj_card_vs_cpu(torch):
+    """Phase 24: one f32 raft_train_step and one supervised step at the
+    test geometry, on the CPU (plain versions) and on the card (kernels),
+    same weights, batch and t_ref: loss, gradients, BN statistics."""
+    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
+    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
+    from motionpriorcmax_tpu_torch.training import raft_spline as trs
+    from motionpriorcmax_tpu_torch.training.loop import to_device
+
+    h = w = 32
+    cfg = RAFTSplineConfig(nbins_context=5, nbins_correlation=3,
+                           bezier_degree=2, ev_target_indices=(2, 4),
+                           ev_levels=(1, 2), iters=2)
+    loss_cfg = FocusLossConfig(image_shape=(h, w), num_bins=5, num_knn=4,
+                               smooth_weight=0.01, lut_superpixel_size=4,
+                               smooth_type="on_flow_to_next")
+    selfsup, supervised = tiny_traj_batches(cfg, h, w)
     times = torch.tensor([0.37, 0.1, 0.3, 0.5, 0.7, 0.9])
     levels = max(cfg.ev_levels) * cfg.iters
     fns = traj_wrappers()
@@ -3600,6 +3638,356 @@ def phase_buckets(torch, scfg, sloss, smi_line):
                             n_steps=PART_B_STEPS)
 
 
+# ---------------------------------------------------------------------------
+# flow-train's epoch image panels; RAFT-Spline compute_dtype bfloat16
+# ---------------------------------------------------------------------------
+
+PANEL_SAMPLES = 5                  # utils/image_logging.py's N_SAMPLES
+PANEL_IMAGES = ("0_unwarped", "1_gt_iwe", "2_iwe", "3_gt_flow", "4_flow")
+# Launches per render of one sample (the unwarped image's vote, the eval
+# step's two polarity halves and its LUT gather, the GT IWE's two halves
+# on events in collate order), and with knn_method softmax and the voxel
+# grid voted in the render (one softmax forward for the step and one for
+# the GT IWE, one voxel vote for both the step and the predicted flow).
+RENDER_EXACT = {**{k: 0 for k in EXACT_STEP}, "iwe_vote_fwd": 5,
+                "lut_gather_fwd": 1}
+RENDER_SOFTMAX = {**RENDER_EXACT, "softmax_interp_fwd": 2, "voxel_vote": 1}
+# Card vs CPU render at the test geometry: each image against its CPU
+# version, relative to the image's largest |value| (the f32 step of phase
+# 13 agrees to ~1e-6; the panel's IWEs are that step's).
+TOL_RENDER = 1e-4
+# bf16 RAFT, card vs CPU at the test geometry: the tolerances of
+# tests/test_torch_raft_bf16.py (port vs JAX on the CPU): cuDNN and the
+# CPU's convolutions sum in other orders, and a bf16 rounding that lands a
+# step apart is carried on by the norms and the GRU.
+TOL_BF16_FORWARD = 5e-2            # of the largest upsampled value
+TOL_BF16_LOSS = 1e-3               # relative
+MIN_BF16_GRAD_COS = 0.95           # cosine of all the gradients
+BF16_RAFT = {"compute_dtype": "bfloat16", "corr_dtype": "bfloat16"}
+
+
+def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
+                 smi_line, want_render, tag):
+    """One train_flow epoch at full width (1 train step, the image panel of
+    PANEL_SAMPLES of `samples`, the val pass), the panel's samples collated
+    one by one as the CLI's val loader collates them (DataLoader.collate:
+    capacity 2^20, polarity packing, LUT-cell sort).  Fails unless the 25
+    PNGs are written, read back as 480 x 640 RGB, and every render launches
+    `want_render`.  Returns (launches per render, mean render ms)."""
+    import tempfile
+
+    from motionpriorcmax_tpu_torch.data.loader import DataLoader
+    from motionpriorcmax_tpu_torch.training import loop
+    from motionpriorcmax_tpu_torch.training.loop import train_flow
+    from motionpriorcmax_tpu_torch.utils.png16 import read_png_rgb
+
+    h, w = cfg.image_shape
+    loader = DataLoader(samples, batch_size=1, capacity=FLOW_CAPACITY,
+                        shuffle=False, polarity_aware=True,
+                        pos_capacity=FLOW_CAPACITY // 2,
+                        lut_cell_sort_params=(
+                            loss_cfg.image_shape, loss_cfg.num_bins,
+                            loss_cfg.lut_superpixel_size),
+                        pin_memory=True)
+    fns = kernel_wrappers()
+    renders, collates, panel_s = [], [], []
+    make_render = loop.make_flow_render_fn
+    log_images = loop.log_flow_epoch_images
+
+    def timed_render(*args, **kwargs):
+        render = make_render(*args, **kwargs)
+
+        def run(batch):
+            torch.cuda.synchronize()
+            before = {k: f.launches for k, f in fns.items()}
+            t0 = time.perf_counter()
+            out = render(batch)
+            torch.cuda.synchronize()
+            renders.append(((time.perf_counter() - t0) * 1e3,
+                            {k: f.launches - before[k]
+                             for k, f in fns.items()}))
+            return out
+        return run
+
+    def timed_collate(items):
+        t0 = time.perf_counter()
+        batch = loader.collate(items)
+        collates.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+    def timed_log(*args, **kwargs):
+        t0 = time.perf_counter()
+        log_images(*args, **kwargs)
+        panel_s.append(time.perf_counter() - t0)
+
+    npos = train_batch["num_pos_events"]
+    loop.make_flow_render_fn, loop.log_flow_epoch_images = (timed_render,
+                                                            timed_log)
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            for f in fns.values():
+                f.launches = 0
+            train_flow(cfg, loss_cfg, [train_batch], [val_batch], workdir,
+                       device="cuda", max_epochs=1, num_pos_events=npos,
+                       log_every=1, seed=0, image_log_dataset=samples,
+                       image_log_collate=timed_collate)
+            launches = {k: f.launches for k, f in fns.items()}
+            names = sorted(os.listdir(f"{workdir}/images"))
+            images = [read_png_rgb(f"{workdir}/images/{n}") for n in names]
+    finally:
+        loop.make_flow_render_fn, loop.log_flow_epoch_images = (make_render,
+                                                                log_images)
+    want_names = sorted(f"{1:06d}_{i:02d}_val_{n}.png"
+                        for i in range(PANEL_SAMPLES) for n in PANEL_IMAGES)
+    if names != want_names:
+        fail(f"[{tag}] panel files {names}, expected {want_names}")
+    bad = [n for n, im in zip(names, images)
+           if im.shape != (h, w, 3) or im.dtype != np.uint8]
+    if bad:
+        fail(f"[{tag}] panel images that do not read back as {h}x{w} RGB "
+             f"uint8: {bad}")
+    flat = [n for n, im in zip(names, images) if im.min() == im.max()]
+    per_render = [c for _, c in renders]
+    if len(renders) != PANEL_SAMPLES or any(c != want_render
+                                            for c in per_render):
+        fail(f"[{tag}] expected {PANEL_SAMPLES} renders of {want_render} "
+             f"launches, got {per_render}")
+    render_ms = [t for t, _ in renders]
+    mean_ms = float(np.mean(render_ms[1:]))
+    write_ms = (panel_s[0] * 1e3 - sum(collates) - sum(render_ms)) \
+        / PANEL_SAMPLES
+    print(f"[{tag}] dsec.yaml {h}x{w} {cfg.compute_dtype} UNet, knn_method "
+          f"{loss_cfg.knn_method}, "
+          f"{'host' if 'voxel' in train_batch else 'device'} voxel: "
+          f"{len(names)} PNGs read back ({h}x{w} RGB; single-colour: "
+          f"{flat or 'none'}); per sample: render "
+          f"{', '.join(f'{t:.1f}' for t in render_ms)} ms (mean after the "
+          f"first {mean_ms:.1f}), collate "
+          f"{', '.join(f'{t:.1f}' for t in collates)} ms, colorize + PNG "
+          f"~{write_ms:.1f} ms; the panel {panel_s[0]:.2f} s; launches per "
+          f"render { {k: v for k, v in want_render.items() if v} }; the "
+          f"epoch's launches { {k: v for k, v in launches.items() if v} }; "
+          f"card {smi_line}")
+    return {k: v for k, v in want_render.items() if v}, mean_ms
+
+
+def phase_panels_card_vs_cpu(torch):
+    """One sample's render at the test geometry (f32 UNet) on the CPU
+    (plain versions) and on the card (kernels), same weights, times and
+    collated sample, exact KNN with the host voxel and softmax with the
+    voxel grid voted in the render.  Returns the largest relative
+    difference."""
+    from motionpriorcmax_tpu_torch.data.loader import DataLoader
+    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
+    from motionpriorcmax_tpu_torch.training.loop import make_flow_render_fn
+
+    h, w, nb = 32, 48, 15
+    times = torch.cat([torch.tensor([0.37]),
+                       (torch.arange(nb) + 0.5) / nb]).float()
+    fns = kernel_wrappers()
+    worst = 0.0
+    for knn, device_voxel, want in (("exact", False, RENDER_EXACT),
+                                    ("softmax", True, RENDER_SOFTMAX)):
+        cfg, loss_cfg = flow_configs(
+            {**DSEC_CONFIG, "common": {**DSEC_CONFIG["common"], "height": h,
+                                       "width": w},
+             "loss": {**DSEC_CONFIG["loss"], "knn_method": knn}},
+            compute_dtype="float32", unet_widths=[8, 16, 16, 32, 32])
+        sample = flow_samples(5, 1, 2500, h, w, nb, gt=True,
+                              voxel=not device_voxel)
+        batch = DataLoader(sample, batch_size=1, capacity=4096,
+                           polarity_aware=True, pos_capacity=2048,
+                           lut_cell_sort_params=(
+                               (h, w), nb, loss_cfg.lut_superpixel_size)
+                           ).collate(sample)
+        out = {}
+        before = {k: f.launches for k, f in fns.items()}
+        for dev in ("cpu", "cuda"):
+            state = ttn.create_train_state(cfg, dev,
+                                           torch.Generator().manual_seed(1))
+            out[dev] = make_flow_render_fn(state, loss_cfg,
+                                           times=times)(batch)
+        launches = {k: fns[k].launches - before[k] for k in fns}
+        if set(out["cpu"]) != set(out["cuda"]) or len(out["cpu"]) != 5:
+            fail(f"render outputs {sorted(out['cpu'])} / "
+                 f"{sorted(out['cuda'])}")
+        diffs = {k: float(np.abs(out["cuda"][k] - v).max()
+                          / max(np.abs(v).max(), 1e-30))
+                 for k, v in out["cpu"].items()}
+        worst = max(worst, *diffs.values())
+        print(f"[panel-card-vs-cpu] f32 render {h}x{w}, knn_method {knn}, "
+              f"{'device' if device_voxel else 'host'} voxel: max |diff| / "
+              f"max |cpu| per image "
+              f"{ {k: f'{v:.2e}' for k, v in diffs.items()} } (bound "
+              f"{TOL_RENDER:g}); card launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        if not max(diffs.values()) <= TOL_RENDER:
+            fail("card and CPU renders disagree")
+        if launches != want:
+            fail(f"the card's render launched {launches}, not {want}")
+    return worst
+
+
+def lookup_levels(pyramid, coords):
+    """(corr_l, cx, cy, chan_off) per level as lookup_corr_pyramid hands
+    them to the kernels, and the slab's channel count."""
+    from motionpriorcmax_tpu_torch.models.raft_spline.corr import \
+        lookup_inputs
+
+    levels, off = [], 0
+    for corr_l, cx, cy in lookup_inputs(pyramid, coords):
+        levels.append((corr_l, cx, cy, off))
+        off += corr_l.shape[0] * K
+    return levels, off
+
+
+@contextlib.contextmanager
+def first_lookup(torch, store):
+    """Keep the first pyramid lookup's per-level inputs (the volumes and
+    their window centres, detached) in `store` while the model runs; the
+    lookup itself is unchanged."""
+    from motionpriorcmax_tpu_torch.models.raft_spline import raft
+
+    inner = raft.lookup_corr_pyramid
+
+    def spy(pyramid, coords, radius=RADIUS):
+        if "levels" not in store:
+            store["levels"], store["c_total"] = lookup_levels(
+                [(idx, c.detach()) for idx, c in pyramid], coords.detach())
+        return inner(pyramid, coords, radius)
+
+    raft.lookup_corr_pyramid = spy
+    try:
+        yield store
+    finally:
+        raft.lookup_corr_pyramid = inner
+
+
+def phase_bf16_lookup(torch, levels, c_total, tag):
+    """Row 1 on a request's bf16 pyramid (all levels, one launch) against
+    its plain version; its time, beside the same windows on the volumes
+    widened to f32, and its bytes bound.  Returns the kernels-line
+    numbers."""
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    corr0 = levels[0][0]
+    b, (h1, w1) = corr0.shape[1], (H // 8, W // 8)
+    out_k = torch.full((b, c_total, h1, w1), float("nan"), device="cuda")
+    out_p = torch.full_like(out_k, float("nan"))
+    cw.corr_window_lookup_levels(levels, RADIUS, out_k)
+    cw.corr_window_lookup_levels_plain(levels, RADIUS, out_p)
+    torch.cuda.synchronize()
+    err = check_close(f"fused lookup of {len(levels)} levels, B={b}, "
+                      f"{str(corr0.dtype)[6:]} volumes of the path", out_k,
+                      out_p, TOL_KERNEL, tag)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    levels32 = [(c.float(), cx, cy, off) for c, cx, cy, off in levels]
+    ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        levels, RADIUS, out_k), flush, card=True)
+    ms32 = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        levels32, RADIUS, out_k), flush, card=True)
+    nbytes = sum(needed_bytes(torch, c, cx, cy) for c, cx, cy, _ in levels)
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    del flush, levels32, out_k, out_p
+    torch.cuda.empty_cache()
+    print(f"[{tag}] one refinement iteration (1 launch, levels 1-4) on the "
+          f"bf16 pyramid: card {ms * 1e3:.1f} us, the same windows on f32 "
+          f"volumes {ms32 * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+          f"({nbytes / 1e6:.1f} MB needed, bytes-bound)")
+    return {"bf16_max_abs_err": err, "bf16_card_ms": ms,
+            "bf16_f32_volumes_card_ms": ms32, "bf16_bound_ms": bound}
+
+
+def phase_bf16_bwd(torch, levels, c_total, tag):
+    """Row 2 on a train step's bf16 pyramid, level by level, against its
+    plain version with a random cotangent; its time per refinement
+    iteration (4 launches) beside the same on the volumes widened to f32.
+    Returns the kernels-line numbers."""
+    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
+
+    b = levels[0][0].shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(410)
+    g = torch.randn(b, c_total, H // 8, W // 8, device="cuda", generator=gen)
+    err16 = err32 = 0.0
+    for lvl, (corr, cx, cy, off) in enumerate(levels):
+        got = cw.corr_window_lookup_bwd(corr, cx, cy, RADIUS, g, off)
+        want = cw.corr_window_lookup_bwd_plain(corr, cx, cy, RADIUS, g, off)
+        torch.cuda.synchronize()
+        name = (f"level {lvl + 1} map {corr.shape[-2]}x{corr.shape[-1]} "
+                f"B={b} {str(corr.dtype)[6:]} volume of the path")
+        err16 = max(err16, check_close(f"{name} d corr", got[0].float(),
+                                       want[0].float(), TOL_BWD_BF16, tag))
+        for label, a, w in (("d cx", got[1], want[1]),
+                            ("d cy", got[2], want[2])):
+            err32 = max(err32, check_close(f"{name} {label}", a, w, TOL_BWD,
+                                           tag))
+        del got, want
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def iteration(lv):
+        for corr, cx, cy, off in lv:
+            cw.corr_window_lookup_bwd(corr, cx, cy, RADIUS, g, off)
+
+    ms = time_ms(torch, lambda: iteration(levels), flush, card=True)
+    levels32 = [(c.float(), cx, cy, off) for c, cx, cy, off in levels]
+    ms32 = time_ms(torch, lambda: iteration(levels32), flush, card=True)
+    del flush, levels32, g
+    torch.cuda.empty_cache()
+    print(f"[{tag}] one refinement iteration's backward (4 launches) on the "
+          f"bf16 pyramid: card {ms * 1e3:.1f} us, on f32 volumes "
+          f"{ms32 * 1e3:.1f} us")
+    return {"bf16_max_abs_err": err16, "bf16_d_coords_max_abs_err": err32,
+            "bf16_card_ms": ms, "bf16_f32_volumes_card_ms": ms32}
+
+
+def phase_bf16_card_vs_cpu(torch):
+    """The bf16 model at the test geometry on the CPU (plain versions) and
+    the card (kernels), same weights and inputs: the forward, and one
+    self-supervised raft_train_step (loss and the gradients' direction)."""
+    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
+    from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
+    from motionpriorcmax_tpu_torch.training import raft_spline as trs
+    from motionpriorcmax_tpu_torch.training.loop import to_device
+
+    h = w = 32
+    cfg = RAFTSplineConfig(nbins_context=5, nbins_correlation=3,
+                           bezier_degree=2, ev_target_indices=(2, 4),
+                           ev_levels=(1, 2), iters=2, **BF16_RAFT)
+    loss_cfg = FocusLossConfig(image_shape=(h, w), num_bins=5, num_knn=4,
+                               smooth_weight=0.01, lut_superpixel_size=4,
+                               smooth_type="on_flow_to_next")
+    host, _ = tiny_traj_batches(cfg, h, w)
+    times = torch.tensor([0.37, 0.1, 0.3, 0.5, 0.7, 0.9])
+    ups, steps = {}, {}
+    for dev in ("cpu", "cuda"):
+        state = trs.create_raft_train_state(cfg, trs.RAFTTrainConfig(), dev,
+                                            torch.Generator().manual_seed(1))
+        batch = to_device(host, torch.device(dev))
+        with torch.no_grad():
+            _, up = state.model.eval()(batch["ev_repr"], test_mode=True)
+        ups[dev] = up.float().cpu()
+        logs = trs.raft_train_step(state, batch, None, loss_cfg,
+                                   host["num_pos_events"], times=times)
+        steps[dev] = (float(logs["train_losses/total"]), torch.cat(
+            [p.grad.detach().float().cpu().reshape(-1)
+             for p in state.model.parameters()]))
+    fwd_rel = float((ups["cuda"] - ups["cpu"]).abs().max()
+                    / ups["cpu"].abs().max())
+    (l_c, g_c), (l_g, g_g) = steps["cpu"], steps["cuda"]
+    loss_rel = abs(l_g - l_c) / abs(l_c)
+    cos = float((g_c * g_g).sum() / (g_c.norm() * g_g.norm()))
+    print(f"[bf16-card-vs-cpu] bf16 compute + bf16 corr, {h}x{w} B=2, "
+          f"{cfg.iters} iterations: forward max |diff| / max |cpu| "
+          f"{fwd_rel:.3e} (bound {TOL_BF16_FORWARD:g}); raft_train_step loss "
+          f"rel diff {loss_rel:.3e} (bound {TOL_BF16_LOSS:g}), gradient "
+          f"cosine {cos:.5f} (at least {MIN_BF16_GRAD_COS:g})")
+    if not (fwd_rel <= TOL_BF16_FORWARD and loss_rel <= TOL_BF16_LOSS
+            and cos >= MIN_BF16_GRAD_COS):
+        fail("card and CPU bf16 RAFT-Spline disagree")
+    return fwd_rel
+
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -3720,8 +4108,9 @@ def main() -> int:
     # flow-train, exact KNN and host voxel grids
     t_flow = time.perf_counter()
     fcfg, floss = flow_configs(DSEC_CONFIG)
-    train_batch, val_batch, unsorted_train, unsorted_val = phase_flow_batch(
-        fcfg, floss, DSEC_CONFIG["data"]["batch_size"])
+    (train_batch, val_batch, unsorted_train, unsorted_val,
+     windows) = phase_flow_batch(fcfg, floss,
+                                 DSEC_CONFIG["data"]["batch_size"])
     numbers = phase_flow_kernels(torch, fcfg, floss, train_batch)
     flow_launches, exact_ms = phase_flow_train(
         torch, fcfg, floss, train_batch, val_batch, smi_line, EXACT_STEP,
@@ -3767,7 +4156,6 @@ def main() -> int:
     phase_traj_train(torch, TAB2L5_CONFIG, supervised, val_samples, smi_line,
                      TRAJ_SUPERVISED_STEP, "traj-train-supervised",
                      supervised=True)
-    del val_samples
     torch.cuda.empty_cache()
     phase_traj_breakdown(torch, TAB2L5_CONFIG, selfsup)
     torch.cuda.empty_cache()
@@ -3777,7 +4165,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_traj_breakdown(torch, TAB2L5_CONFIG, supervised,
                          tag="traj-breakdown-supervised", supervised=True)
-    del selfsup, supervised
+    del supervised
     torch.cuda.empty_cache()
     phase_traj_card_vs_cpu(torch)
     print(f"[done] traj-train phases {time.perf_counter() - t_traj:.1f} s")
@@ -3833,7 +4221,6 @@ def main() -> int:
     phase_flow_train(torch, lcfg, lloss, train_batch, val_batch, smi_line,
                      L1_STEP, L1_VAL, tag="l1-softmax-train",
                      n_steps=PART_B_STEPS)
-    del train_batch, val_batch, host_voxel
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch, {"knn_method": "softmax",
                                    "dist_norm": "l1"}, True, L1_STEP,
@@ -3843,12 +4230,78 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[done] grid / L1 softmax / bucket phases "
           f"{time.perf_counter() - t_b:.1f} s")
+
+    # flow-train's epoch image panels: phase 8's windows with GT flow
+    t_p = time.perf_counter()
+    render_launches, render_ms = phase_panels(
+        torch, fcfg, floss, windows, {**train_batch, "voxel": host_voxel[0]},
+        {**val_batch, "voxel": host_voxel[1]}, smi_line, RENDER_EXACT,
+        "panel")
+    torch.cuda.empty_cache()
+    soft_render_launches, soft_render_ms = phase_panels(
+        torch, scfg, sloss, [{k: v for k, v in smp.items() if k != "voxel"}
+                             for smp in windows],
+        train_batch, val_batch, smi_line, RENDER_SOFTMAX, "panel-softmax")
+    del train_batch, val_batch, host_voxel, windows
+    torch.cuda.empty_cache()
+    render_cpu_err = phase_panels_card_vs_cpu(torch)
+    print(f"[done] image panel phases {time.perf_counter() - t_p:.1f} s")
+
+    # RAFT-Spline with compute_dtype and corr_dtype bfloat16
+    from motionpriorcmax_tpu_torch.cli.main import traj_train_configs
+    from motionpriorcmax_tpu_torch.training.raft_spline import \
+        raft_validation_step
+
+    t_16 = time.perf_counter()
+    cfg16 = RAFTSplineConfig(**BF16_RAFT)
+    model = create_raft_model(cfg16, "cuda", torch.Generator().manual_seed(0))
+    requests = [synthetic_request(torch, cfg16, 1000 + i) for i in range(4)]
+    bf16_launches = phase_serving(torch, model, requests, ts,
+                                  tag="serving-bf16")
+    # The lookup's inputs of one more request, not timed.
+    store = {}
+    with first_lookup(torch, store):
+        raft_validation_step(model, {k: v.cuda() for k, v in
+                                     requests[1].items()}, ts)
+    del model, requests
+    bf16_lookup = phase_bf16_lookup(torch, store["levels"], store["c_total"],
+                                    "bf16-kernel-vs-plain")
+    del store
+    torch.cuda.empty_cache()
+    tree16 = {**TAB2L5_CONFIG, "model": {**TAB2L5_CONFIG["model"],
+                                         **BF16_RAFT}}
+    traj16_launches = phase_traj_train(torch, tree16, selfsup, val_samples,
+                                       smi_line, TRAJ_STEP, "traj-train-bf16")
+    del val_samples
+    torch.cuda.empty_cache()
+    # A train-mode forward of the step's model on its batch, not timed: the
+    # pyramid the backward kernel sees at B=6.
+    model = create_raft_model(
+        traj_train_configs(tree16, (H, W), TRAJ_SCHEDULE_STEPS)[0], "cuda",
+        torch.Generator().manual_seed(0)).train()
+    store = {}
+    with first_lookup(torch, store), torch.no_grad():
+        model(torch.from_numpy(selfsup["ev_repr"]).cuda())
+    del model, selfsup
+    bf16_bwd = phase_bf16_bwd(torch, store["levels"], store["c_total"],
+                              "bf16-bwd-kernel-vs-plain")
+    del store
+    torch.cuda.empty_cache()
+    bf16_cpu_err = phase_bf16_card_vs_cpu(torch)
+    print(f"[done] bf16 RAFT-Spline phases {time.perf_counter() - t_16:.1f} s")
+    # Row 1 in the bf16 requests (phase 40): launches per request (the warm-up
+    # included) and the kernel on their bf16 pyramid.
+    kernels[0]["bf16_compute"] = {"request_launches": bf16_launches / 4,
+                                  "card_vs_cpu_rel_err": bf16_cpu_err,
+                                  **bf16_lookup}
     kernels.append({
         "name": "corr_window_lookup_bwd", "route": "cuda",
         "source": "motionpriorcmax_tpu_torch/csrc/corr_window.cu",
         "replaces": "motionpriorcmax_tpu/ops/pallas/corr_window.py:155",
         "launches": traj_launches["corr_window_lookup_bwd"],
         "max_abs_err": bwd_err32, "bf16_max_abs_err": bwd_err16,
+        "bf16_compute": {"step_launches": traj16_launches[
+            "corr_window_lookup_bwd"] / TRAIN_STEPS, **bf16_bwd},
         "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
         "bound_ms": bwd_totals["bound_ms"], "bound_by": "bytes",
         "library_ms": bwd_totals["library_ms"],
@@ -3867,6 +4320,13 @@ def main() -> int:
             entry["unsorted_step_launches"] = uns_launches[kname]
         entry.update(numbers[kname])
         entry["work"] = FLOW_WORK[kname]
+        if soft_render_launches.get(kname):
+            # The image panel's render of one sample (phase 38).
+            entry["panel_render_launches"] = {
+                "exact_host_voxel": render_launches.get(kname, 0),
+                "softmax_device_voxel": soft_render_launches[kname],
+                "render_ms": [render_ms, soft_render_ms],
+                "card_vs_cpu_rel_err": render_cpu_err}
         if kname == "voxel_vote":
             # This slice's main path: dsec-infer, one launch per window.
             entry["inference"] = {

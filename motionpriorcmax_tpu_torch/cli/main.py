@@ -4,7 +4,8 @@ flow-train: self-supervised DSEC flow training (UNet + focus loss), with
 the JAX CLI's --config / --workdir / --ckp_path / --event-capacity /
 --event-capacity-buckets / --log-every / --device-voxelize (voxel grids
 built inside the step from the batch's events instead of by the loader),
-plus --device.
+plus --device; each epoch writes the image panel of five val samples
+under <workdir>/images/.
 dsec-infer: DSEC benchmark-submission PNGs of the seven test sequences,
 with the JAX CLI's --config / --timestamp-dir / --ckpt-step, plus --device.
 extract-weights: a checkpoint -> bare weights .npz that dsec-infer reads.
@@ -93,11 +94,16 @@ def cmd_flow_train(args) -> int:
             args.ckp_path, create_train_state(cfg, device))
         print(f"resumed from {args.ckp_path} @ step {step}")
     workdir = args.workdir or f"runs/flow_{datetime.now():%Y%m%d_%H%M%S}"
-    out = train_flow(cfg, loss_cfg, make_loader("train", True),
-                     make_loader("val", False), workdir, device=device,
+    val_loader = make_loader("val", False)
+    # The epoch's image panel: val samples, each collated as the val
+    # loader collates a batch.
+    out = train_flow(cfg, loss_cfg, make_loader("train", True), val_loader,
+                     workdir, device=device,
                      max_epochs=config.get("trainer", {}).get("max_epochs", 100),
                      num_pos_events=pos_capacity if pab else -1,
-                     resume_state=resume_state, log_every=args.log_every)
+                     resume_state=resume_state, log_every=args.log_every,
+                     image_log_dataset=val_loader.dataset,
+                     image_log_collate=val_loader.collate)
     print(f"done: best={out['best']:.4f} steps={out['steps']}")
     return 0
 

@@ -79,16 +79,33 @@ class DataLoader:
             return sample
         return prepare_sample(sample, **self._collate_kw)
 
+    def _bucket_kw(self, samples) -> dict:
+        """prepare_sample's arguments for a batch of raw `samples`: with
+        capacity buckets, the capacities their largest sample needs."""
+        kw = dict(self._collate_kw)
+        if "events" in samples[0] or "pos_events" in samples[0]:
+            kw["capacity"], kw["pos_capacity"] = bucket_capacities(
+                samples, self.capacity_buckets, kw["polarity_aware"])
+        return kw
+
     def _stack(self, items, pool) -> Dict[str, np.ndarray]:
         if self.collate_fn:
             return self.collate_fn(items)
         if self.capacity_buckets is not None:
-            kw = dict(self._collate_kw)
-            if "events" in items[0] or "pos_events" in items[0]:
-                kw["capacity"], kw["pos_capacity"] = bucket_capacities(
-                    items, self.capacity_buckets, kw["polarity_aware"])
+            kw = self._bucket_kw(items)
             items = list(pool.map(lambda s: prepare_sample(s, **kw), items))
         return stack_samples(items, self._alloc)
+
+    def collate(self, samples) -> Dict[str, np.ndarray]:
+        """A batch of raw dataset samples, collated as iterating the loader
+        collates them (collate_fn, capacity or buckets, polarity packing,
+        LUT-cell sort, pinned stacking), in the calling thread."""
+        if self.collate_fn:
+            return self.collate_fn(samples)
+        kw = (self._collate_kw if self.capacity_buckets is None
+              else self._bucket_kw(samples))
+        return stack_samples([prepare_sample(s, **kw) for s in samples],
+                             self._alloc)
 
     def __len__(self) -> int:
         n = len(self.dataset)

@@ -101,14 +101,24 @@ def lookup_corr_pyramid(pyramid: Pyramid, coords: torch.Tensor,
       gradient reaches the volumes and `coords` (through the bilinear
       fractions; the per-level 1/2^l scale is torch's, outside the kernel).
     """
-    t0, b, _, h1, w1 = coords.shape
-    tensors = []
+    h1, w1 = coords.shape[-2:]
+    tensors = [t for level in lookup_inputs(pyramid, coords) for t in level]
+    return CorrPyramidLookup.apply(radius, h1, w1, *tensors)
+
+
+def lookup_inputs(pyramid: Pyramid, coords: torch.Tensor
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """(corr_l, cx, cy) per level as the lookup kernels take them: the
+    level's volume and its targets' window centres [T_l, B, h1*w1] at the
+    level's scale."""
+    _, b, _, h1, w1 = coords.shape
+    levels = []
     for lvl, (target_idx, corr_l) in enumerate(pyramid):
         # Integer indexing + stack: indexing with a list would copy the index
         # to the card from pageable memory, which synchronizes the stream.
         sel = torch.stack([coords[i] for i in target_idx]) / (2.0 ** lvl)
         tl = len(target_idx)
-        cx = sel[:, :, 0].reshape(tl, b, h1 * w1).contiguous()
-        cy = sel[:, :, 1].reshape(tl, b, h1 * w1).contiguous()
-        tensors.extend((corr_l, cx, cy))
-    return CorrPyramidLookup.apply(radius, h1, w1, *tensors)
+        levels.append((corr_l,
+                       sel[:, :, 0].reshape(tl, b, h1 * w1).contiguous(),
+                       sel[:, :, 1].reshape(tl, b, h1 * w1).contiguous()))
+    return levels

@@ -60,9 +60,11 @@ class RAFTSplineConfig:
     # Storage dtype of the correlation pyramid; the dot products are f32
     # and the lookup accumulates in f32 either way.
     corr_dtype: str = "float32"
-    # Conv compute dtype of the encoders and the update block.  Only
-    # 'float32' is ported (the forward runs with TF32 off, see no_tf32);
-    # 'bfloat16' raises NotImplementedError.
+    # Conv compute dtype of the encoders and the update block (f32
+    # parameters either way).  'bfloat16' keeps the corr volume, its
+    # pyramid and lookup, the GRU state, the delta and mask heads' output
+    # convolutions, the curve parameters and the upsample in f32, as the
+    # JAX model does.
     compute_dtype: str = "float32"
 
     def __post_init__(self):
@@ -73,9 +75,6 @@ class RAFTSplineConfig:
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
                                  f"expected one of {tuple(_DTYPES)}")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet; use 'float32'")
         if not (self.use_events or self.use_boundary_images):
             raise ValueError("need use_events or use_boundary_images")
         if self.use_events:
@@ -116,19 +115,21 @@ class RAFTSpline(nn.Module):
     def __init__(self, cfg: RAFTSplineConfig):
         super().__init__()
         self.cfg = cfg
+        dt = _DTYPES[cfg.compute_dtype]
         context_in = 0
         if cfg.use_events:
             self.fnet_ev = BasicEncoder(cfg.nbins_correlation, cfg.feature_dim,
-                                        cfg.feature_norm)
+                                        cfg.feature_norm, dt)
             context_in += cfg.nbins_context
         if cfg.use_boundary_images:
-            self.fnet_img = BasicEncoder(3, cfg.feature_dim, cfg.feature_norm)
+            self.fnet_img = BasicEncoder(3, cfg.feature_dim, cfg.feature_norm,
+                                         dt)
             context_in += 3
         self.cnet = BasicEncoder(context_in, cfg.hidden_dim + cfg.context_dim,
-                                 cfg.context_norm)
+                                 cfg.context_norm, dt)
         self.update_block = BasicUpdateBlock(cfg.corr_channels, cfg.param_dim,
                                              cfg.hidden_dim, cfg.context_dim,
-                                             cfg.motion_dim)
+                                             cfg.motion_dim, dt)
         if cfg.curve_type == "LEARNED":
             self.basis_mlp = BasisMLP(cfg.bezier_degree, depth=2,
                                       activation="relu")
@@ -175,7 +176,7 @@ class RAFTSpline(nn.Module):
         if iters < 1:
             raise ValueError("iters must be >= 1")
         keep_all = not test_mode
-        with no_tf32():             # compute_dtype 'float32', the one ported
+        with no_tf32():             # the f32 parts stay f32 on the card
             params_seq, mask_seq = self._refine(voxel_grid, images, iters,
                                                 keep_all)
             if test_mode:
@@ -199,7 +200,7 @@ class RAFTSpline(nn.Module):
             if voxel_grid is None:
                 raise ValueError("use_events needs voxel_grid")
             corr_grids, context_input = self.gen_voxel_grids(voxel_grid)
-            fmaps = self.fnet_ev(corr_grids)
+            fmaps = [f.float() for f in self.fnet_ev(corr_grids)]
             corr_volumes.append(compute_corr_volume(fmaps[0],
                                                     torch.stack(fmaps[1:])))
             dt = 1.0 / (cfg.nbins_context - 1)
@@ -209,7 +210,7 @@ class RAFTSpline(nn.Module):
             if images is None or len(images) != 2:
                 raise ValueError("use_boundary_images needs an image pair")
             imgs = [2.0 * (im.float() / 255.0) - 1.0 for im in images]
-            fm = self.fnet_img(imgs)
+            fm = [f.float() for f in self.fnet_img(imgs)]
             corr_volumes.append(compute_corr_volume(fm[0], fm[1][None]))
             lookup_ts.append(1.0)
             context_input = (imgs[0] if context_input is None
@@ -219,7 +220,7 @@ class RAFTSpline(nn.Module):
         pyramid = build_corr_pyramid(corr, cfg.levels)
         del corr, corr_volumes
 
-        cnet = self.cnet(context_input)
+        cnet = self.cnet(context_input).float()
         net = torch.tanh(cnet[:, :cfg.hidden_dim])
         inp = torch.relu(cnet[:, cfg.hidden_dim:])
 

@@ -35,13 +35,18 @@ from .norm import FlaxBatchNorm2d
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-class _Conv(nn.Conv2d):
-    """Conv2d that runs in the input's dtype (weights cast per call)."""
+class CastConv2d(nn.Conv2d):
+    """Conv2d that runs in the input's dtype (weights cast per call).
+
+    Below f32 the bias is added to the rounded convolution, in that dtype,
+    as flax's nn.Conv adds it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding)
+        weight = self.weight.to(x.dtype)
+        if self.bias is None or x.dtype == torch.float32:
+            return F.conv2d(x, weight, self.bias, self.stride, self.padding)
+        return (F.conv2d(x, weight, None, self.stride, self.padding)
+                + self.bias.to(x.dtype)[:, None, None])
 
 
 class _ConvTranspose(nn.ConvTranspose2d):
@@ -56,9 +61,9 @@ class DoubleConv(nn.Module):
         super().__init__()
         mid = mid_channels or out_channels
         self.double_conv = nn.Sequential(
-            _Conv(in_channels, mid, 3, padding=1, bias=False),
+            CastConv2d(in_channels, mid, 3, padding=1, bias=False),
             FlaxBatchNorm2d(mid), nn.ReLU(),
-            _Conv(mid, out_channels, 3, padding=1, bias=False),
+            CastConv2d(mid, out_channels, 3, padding=1, bias=False),
             FlaxBatchNorm2d(out_channels), nn.ReLU())
 
     def forward(self, x):

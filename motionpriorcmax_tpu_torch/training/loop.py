@@ -1,9 +1,11 @@
 """Training loops on one device.
 
 train_flow (JAX: training/loop.py::train_flow): per epoch, train steps
-over the loader, then a validation pass whose metrics accumulate on the
-device (MetricBank), then a checkpoint kept by best-k retention on the
-monitored metric (the reference's ModelCheckpoint(save_top_k=5,
+over the loader, then the image panel of five validation samples
+(`make_flow_render_fn`, utils/image_logging.py) when given their dataset,
+then a validation pass whose metrics accumulate on the device
+(MetricBank), then a checkpoint kept by best-k retention on the monitored
+metric (the reference's ModelCheckpoint(save_top_k=5,
 monitor='val_losses/EPE')).
 
 train_traj (JAX: cli/main.py::cmd_traj_train's loop): RAFT-Spline steps,
@@ -11,7 +13,8 @@ self-supervised or supervised, until max_steps; every val_every steps a
 validation pass and a checkpoint kept by best-k on val/masked_TEPE, or,
 without validation, a checkpoint every ckpt_every steps.
 
-Scalars go to <workdir>/scalars.jsonl.
+Scalars go to <workdir>/scalars.jsonl and, when the `tensorboard` package
+is installed, to a TensorBoard event file under <workdir>/tb/.
 """
 
 from __future__ import annotations
@@ -24,34 +27,53 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from ..losses import FocusLossConfig
+from ..device import no_tf32
+from ..losses import FocusLossConfig, focus_loss, get_reconstruction_times
 from ..metrics import MetricBank
+from ..ops import events as ev_ops
+from ..utils.image_logging import ImagePanelLogger, log_flow_epoch_images
 from .checkpoint import save_checkpoint
 from .raft_spline import (RAFTTrainState, raft_supervised_train_step,
                           raft_train_step)
-from .trajectory_net import (TrainState, TrajectoryNetConfig,
-                             create_train_state, eval_step, train_step)
+from .trajectory_net import (TrainState, TrajectoryNetConfig, _step,
+                             calculate_trajectories, create_train_state,
+                             eval_step, predict_flow, train_step,
+                             voxelize_batch_on_device)
 
 # Batch entries that stay on the host.
 _HOST_KEYS = ("num_pos_events", "name", "timestamp", "file_index")
 
 
 class ScalarLogger:
-    """JSONL scalar log, one {"step": n, key: value, ...} object per line."""
+    """JSONL scalar log, one {"step": n, key: value, ...} object per line,
+    mirrored to a TensorBoard SummaryWriter(<logdir>/tb) (`tb`; None when
+    the `tensorboard` package is not installed)."""
 
     def __init__(self, logdir: str):
         self.path = Path(logdir)
         self.path.mkdir(parents=True, exist_ok=True)
         self._fh = open(self.path / "scalars.jsonl", "a")
+        self.tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self.tb = SummaryWriter(str(self.path / "tb"))
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         rec = {"step": step}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
+        if self.tb is not None:
+            for k, v in rec.items():
+                if k != "step":
+                    self.tb.add_scalar(k, v, step)
 
     def close(self) -> None:
         self._fh.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -78,19 +100,94 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
     return out
 
 
+def make_flow_render_fn(state: TrainState, loss_cfg: FocusLossConfig,
+                        seed: int = 0, times: Optional[torch.Tensor] = None
+                        ) -> Callable[[Dict], Dict[str, np.ndarray]]:
+    """render(batch) of the image panel (JAX: training/loop.py::
+    make_flow_render_fn) for a collated numpy batch of one sample; returns
+    numpy arrays:
+      unwarped_iwe  the bilinear vote of the raw events, 3x3 blurred;
+      pred_iwe      the IWE of the eval-mode step (the positive half with
+                    polarity-aware batching);
+      pred_flow     `predict_flow` (a batch without 'voxel' voxelized on
+                    the device first);
+      gt_flow       the batch's forward_flow, when it has one; then, for
+                    the polynomial basis with num_basis 1 only,
+      gt_iwe        the focus loss's IWE of forward_flow taken as the
+                    coefficient grid, with t_ref 0.
+    Reconstruction times: `times`, else drawn once from a torch.Generator
+    seeded `seed`.  Runs without autograd and with TF32 off, and leaves
+    the model in the mode it found."""
+    model = state.model
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    h, w = loss_cfg.image_shape
+    if times is None:
+        times = get_reconstruction_times(
+            loss_cfg, torch.Generator().manual_seed(seed))
+    times = times.to(dev)
+
+    def first_iwe(iwes: torch.Tensor) -> np.ndarray:
+        return (iwes[0, 0, 0] if iwes.dim() == 5 else iwes[0, 0]).cpu().numpy()
+
+    def render(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        was_training = model.training
+        try:
+            with torch.no_grad(), no_tf32():
+                out = {}
+                dev_batch = to_device(batch, dev)
+                events = dev_batch["events"]
+                # The vote's kernel reads rows of contiguous coordinates.
+                out["unwarped_iwe"] = ev_ops.gaussian_blur_3x3(
+                    ev_ops.iwe_bilinear_vote_batch(
+                        events[..., :2].contiguous(),
+                        events[..., 5].contiguous(), height=h,
+                        width=w))[0].cpu().numpy()
+                if "voxel" not in dev_batch:
+                    dev_batch["voxel"] = voxelize_batch_on_device(cfg, events)
+                npos = batch.get("num_pos_events", -1)
+                model.eval()
+                _, _, misc = _step(model, dev_batch, loss_cfg, times, npos)
+                out["pred_iwe"] = first_iwe(misc["iwes"])
+                out["pred_flow"] = predict_flow(
+                    state, dev_batch["voxel"], cfg)[0].cpu().numpy()
+                if "gt_flow" in dev_batch:
+                    out["gt_flow"] = np.asarray(batch["forward_flow"][0])
+                    if cfg.basis_type == "polynomial" and cfg.num_basis == 1:
+                        gt_times = times.clone()
+                        gt_times[0] = 0.0
+                        traj = calculate_trajectories(
+                            cfg, dev_batch["gt_flow"], gt_times, True,
+                            model.basis)
+                        _, _, misc_gt = focus_loss(loss_cfg, traj, gt_times,
+                                                   events,
+                                                   num_pos_events=npos)
+                        out["gt_iwe"] = first_iwe(misc_gt["iwes"])
+                return out
+        finally:
+            model.train(was_training)
+
+    return render
+
+
 def train_flow(cfg: TrajectoryNetConfig, loss_cfg: FocusLossConfig,
                train_loader: Iterable, val_loader: Optional[Iterable],
                workdir: str, *, device=None, max_epochs: int = 100,
                num_pos_events: int = -1, seed: int = 0,
                log_every: int = 200, monitor: str = "val_losses/EPE",
-               resume_state: Optional[TrainState] = None
+               resume_state: Optional[TrainState] = None,
+               image_log_dataset=None,
+               image_log_collate: Optional[Callable] = None
                ) -> Dict[str, float]:
     """Self-supervised flow training; returns {'best', 'steps'}.
 
     Batches are numpy dicts from data/loader.py (cell-sorted events,
     'lut_cell_ends', a host 'voxel'); 'num_pos_events' in a batch
     overrides `num_pos_events`.  t_ref of each step comes from a
-    torch.Generator seeded `seed + 1`.
+    torch.Generator seeded `seed + 1`.  With `image_log_dataset` and
+    `image_log_collate` (collate_fn([sample]) -> batch), each epoch's
+    training steps are followed by the image panel of five of its samples
+    under <workdir>/images/ (and in TensorBoard), before validation.
     """
     logger = ScalarLogger(workdir)
     state = resume_state or create_train_state(
@@ -111,6 +208,12 @@ def train_flow(cfg: TrajectoryNetConfig, loss_cfg: FocusLossConfig,
                     scalars["steps_per_s"] = log_every / (now - t_last)
                     t_last = now
                     logger.log(state.step, scalars)
+
+            if image_log_dataset is not None and image_log_collate is not None:
+                log_flow_epoch_images(
+                    ImagePanelLogger(workdir, tb_writer=logger.tb),
+                    image_log_dataset, image_log_collate,
+                    make_flow_render_fn(state, loss_cfg), state.step, "val/")
 
             metric = None
             if val_loader is not None:

@@ -1,10 +1,11 @@
-"""16-bit RGB PNG codec for the DSEC flow files (JAX: utils/png16.py; the
-port's own copy).
+"""RGB PNG codec: the DSEC flow files (16-bit; JAX: utils/png16.py, the
+port's own copy) and the training image panels (8-bit).
 
-Writes color type 2 at bit depth 16 with filter 0 and zlib level 6, the
-same bytes as the JAX writer; reads color type 2 at bit depth 8 or 16 with
-all five scanline filters.  No PIL: it cannot encode 16-bit RGB and
-narrows it on read.
+Writes color type 2 at bit depth 16 or 8 with filter 0 and zlib level 6
+(the 16-bit files the same bytes as the JAX writer); reads color type 2 at
+bit depth 8 or 16 with all five scanline filters.  No PIL: it cannot
+encode 16-bit RGB and narrows it on read, and the machines the port runs
+on need not have it.
 """
 
 from __future__ import annotations
@@ -16,25 +17,38 @@ from pathlib import Path
 import numpy as np
 
 
-def write_png16_rgb(path: Path, arr: np.ndarray) -> None:
-    """Write [H, W, 3] uint16 as a 16-bit RGB PNG (filter type 0)."""
-    if arr.dtype != np.uint16 or arr.ndim != 3 or arr.shape[2] != 3:
-        raise ValueError(f"expected [H, W, 3] uint16, got {arr.dtype} "
+def _write_png_rgb(path: Path, arr: np.ndarray, dtype: str) -> None:
+    """Write [H, W, 3] of `dtype` ('uint8' / 'uint16') as an RGB PNG of that
+    bit depth, filter type 0."""
+    if arr.dtype != np.dtype(dtype) or arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] {dtype}, got {arr.dtype} "
                          f"{arr.shape}")
     h, w, _ = arr.shape
+    nbytes = arr.dtype.itemsize
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * nbytes, 2, 0, 0, 0)
     # Each scanline: filter byte 0, then the row's big-endian samples.
-    rows = np.zeros((h, 1 + w * 6), np.uint8)
-    rows[:, 1:] = arr.astype(">u2").view(np.uint8).reshape(h, w * 6)
+    rows = np.zeros((h, 1 + w * 3 * nbytes), np.uint8)
+    rows[:, 1:] = arr.astype(f">u{nbytes}").view(np.uint8).reshape(
+        h, w * 3 * nbytes)
     png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
            + chunk(b"IEND", b""))
     Path(path).write_bytes(png)
+
+
+def write_png16_rgb(path: Path, arr: np.ndarray) -> None:
+    """Write [H, W, 3] uint16 as a 16-bit RGB PNG (filter type 0)."""
+    _write_png_rgb(path, arr, "uint16")
+
+
+def write_png8_rgb(path: Path, arr: np.ndarray) -> None:
+    """Write [H, W, 3] uint8 as an 8-bit RGB PNG (filter type 0)."""
+    _write_png_rgb(path, arr, "uint8")
 
 
 def read_png_rgb(path: Path) -> np.ndarray:

@@ -10,6 +10,7 @@ package changes).  t_ref comes from the JAX rng and is handed to the port.
 """
 
 import functools
+import importlib.util
 import json
 
 import numpy as np
@@ -345,6 +346,15 @@ def test_flow_train_cli_two_steps(tmp_path):
     log = (workdir / "scalars.jsonl").read_text()
     assert "train_losses/total" in log and "val_losses/EPE" in log
     assert len(list((workdir / "checkpoints").glob("step_*.pt"))) == 2
+    # Each epoch's image panel: 5 val samples x 5 images, named as the JAX
+    # package names them, and the scalars' TensorBoard mirror.
+    pngs = sorted(p.name for p in (workdir / "images").glob("*.png"))
+    assert len(pngs) == 50 and {p[:6] for p in pngs} == {"000001", "000002"}
+    assert {"000002_04_val_0_unwarped.png", "000002_04_val_1_gt_iwe.png",
+            "000002_04_val_2_iwe.png", "000002_04_val_3_gt_flow.png",
+            "000002_04_val_4_flow.png"} <= set(pngs)
+    if importlib.util.find_spec("tensorboard") is not None:
+        assert list((workdir / "tb").glob("events.out.tfevents.*"))
 
     config["trainer"]["max_epochs"] = 1
     cfg_path.write_text(yaml.safe_dump(config))
@@ -353,6 +363,7 @@ def test_flow_train_cli_two_steps(tmp_path):
     steps = [json.loads(line)["step"] for line in
              (tmp_path / "run2" / "scalars.jsonl").read_text().splitlines()]
     assert max(steps) == 3
+    assert len(list((tmp_path / "run2" / "images").glob("000003_*.png"))) == 25
 
 
 def test_flow_train_cli_defaults_to_cuda(tmp_path, monkeypatch):
