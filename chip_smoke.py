@@ -207,6 +207,27 @@ Phases, one or more lines each; any failure exits non-zero:
  42. card vs CPU: the bf16 model at the test geometry, its forward and one
      self-supervised raft_train_step (loss, the gradients' cosine), with
      the tolerances of tests/test_torch_raft_bf16.py
+  multi-process training (motionpriorcmax_tpu_torch/parallel/; every
+  sharded step computes the single-device step of the global batch):
+ 43. the CLI's process group on the card: initialize_distributed over
+     NCCL, a world of one, make_mesh, train_flow's sharded path on phase
+     11's configuration and batch (exact KNN, host voxel): launches per
+     step, the bytes all-reduced per step, step ms beside phase 11's
+ 44. two ranks on the one card over gloo (CUDA tensors; the collectives
+     pass through the host), each a process of this script (--rank R PORT
+     DIR), at dsec.yaml's full width with loss.knn_method softmax and the
+     voxel grid voted in the step, SGD from the seed-0 weights: mesh (1, 2)
+     on the cell-sorted batch (rows 8, 3, 6 on clipped cell ends, 7) and
+     (2, 1) on the unsorted batch (rows 8, 4, 5, 7); per rank its launches,
+     step ms, peak memory and bytes all-reduced per step, and the first
+     step's loss and weights against the single-process step of the global
+     batch on the card, with tests/test_torch_parallel.py's tolerances
+ 45. the same for traj-train (Tab2L5, B=6, exact KNN) at (2, 1) and
+     (1, 2): rows 1, 2, 3 and 6
+ 46. MetricBank.reduce_across_processes over the two ranks (1 and 2 ->
+     1.5), and train_flow on the (2, 1) mesh writing its scalars and
+     checkpoint from rank 0 alone; a rank that fails or outlasts its
+     timeout fails the script
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -1692,12 +1713,13 @@ def kernel_wrappers():
 
 def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
                      want, val_want, tag="flow-train", state=None,
-                     want_losses=None, n_steps=FLOW_STEPS):
+                     want_losses=None, n_steps=FLOW_STEPS, mesh=None):
     """train_flow at full width: 1 warm-up + `n_steps` - 1 timed steps, one
     val pass, a checkpoint; `state` is the train state to start from (else
-    one made from seed 0).  Fails unless every step launches `want` and
-    the val pass `val_want`.  Returns (the kernels' launch counts over the
-    run, mean step ms)."""
+    one made from seed 0); with `mesh` (a world of one), train_flow's
+    sharded path, and the bytes each step all-reduces.  Fails unless every
+    step launches `want` and the val pass `val_want`.  Returns (the
+    kernels' launch counts over the run, mean step ms)."""
     import tempfile
 
     from motionpriorcmax_tpu_torch.training.loop import train_flow
@@ -1705,10 +1727,14 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
     fns = kernel_wrappers()
     marks = []          # (time, launch counts) at every step boundary
 
+    reduced = []        # the mesh's all-reduced bytes at each boundary
+
     def mark():
         torch.cuda.synchronize()
         marks.append((time.perf_counter(),
                       {k: f.launches for k, f in fns.items()}))
+        if mesh is not None:
+            reduced.append(mesh.reduced_bytes)
 
     def timed_batches():
         for _ in range(n_steps):
@@ -1724,7 +1750,7 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
             f.launches = 0
         train_flow(cfg, loss_cfg, timed_batches(), [val_batch], workdir,
                    device="cuda", max_epochs=1, num_pos_events=npos,
-                   log_every=1, seed=0, resume_state=state)
+                   log_every=1, seed=0, resume_state=state, mesh=mesh)
         launches = {k: f.launches for k, f in fns.items()}
         peak = torch.cuda.max_memory_allocated()
         with open(f"{workdir}/scalars.jsonl") as fh:
@@ -1767,6 +1793,12 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
         fail("no checkpoint written")
     timed = [dt for dt, _ in steps[1:]]
     mean = float(np.mean(timed))
+    if mesh is not None:
+        per_step = set(np.diff(reduced).tolist())
+        print(f"[{tag}] bytes all-reduced per step {sorted(per_step)} "
+              f"(world {mesh.world}, backend {mesh.backend})")
+        if len(per_step) != 1 or not per_step.pop() > 0:
+            fail(f"the steps all-reduced {np.diff(reduced).tolist()} bytes")
     h, w = cfg.image_shape
     print(f"[{tag}] dsec.yaml B={b} {h}x{w} {cfg.compute_dtype} UNet, "
           f"knn_method {loss_cfg.knn_method}, "
@@ -3988,6 +4020,383 @@ def phase_bf16_card_vs_cpu(torch):
     return fwd_rel
 
 
+# -- multi-process training: a world of one over NCCL, two ranks over gloo --
+
+PAR_RANKS = 2                     # processes sharing the one card (gloo)
+PAR_TIMEOUT_S = 480               # the two-rank world, start to finish
+PAR_LR = 0.05                     # SGD: the update is linear in the gradient
+PAR_STEPS = 3                     # the compared step + 2 timed
+# The sharded step against the single-process step of the global batch,
+# both this port on the card: the loss to PAR_LOSS_RTOL, and each leaf of
+# the weights (BatchNorm statistics included) after the compared SGD step
+# to PAR_UPDATE_RTOL of that leaf's update in the single-process step,
+# max|w_sharded - w_single| <= r max|w_single - w_before| (an update under
+# 1e-3 of the case's largest counts as that much), a few times the
+# readings of sound runs on an H100 (loss 1.0e-7-6.7e-7 relative,
+# weights 1.1e-3-2.5e-3 of the update).  A control step on each rank,
+# every group sum taken out (each rank's loss of its own share and
+# BatchNorm statistics of its own rows, the gradients still averaged over
+# the world: DDP's function, not the global batch's), must leave the
+# weights' bound (it read 0.15-8854 of the update).
+PAR_LOSS_RTOL = {"flow": 3e-6, "traj": 1e-6}
+PAR_UPDATE_RTOL = {"flow": 1e-2, "traj": 5e-3}
+# (name, path, (data, event), batch, launches per step)
+PAR_CASES = (
+    ("flow-1x2-sorted", "flow", (1, 2), "sorted", SOFTMAX_STEP),
+    ("flow-2x1-unsorted", "flow", (2, 1), "unsorted", UNSORTED_STEP),
+    ("traj-2x1", "traj", (2, 1), "traj", TRAJ_STEP),
+    ("traj-1x2", "traj", (1, 2), "traj", TRAJ_STEP),
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl_world(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
+                     plain_ms):
+    """Phase 43: the CLI's process group on the card, a world of one over
+    NCCL (initialize_distributed, make_mesh), through train_flow's sharded
+    path with phase 11's configuration and batch.  Returns the launches."""
+    import torch.distributed as dist
+
+    from motionpriorcmax_tpu_torch.parallel import (initialize_distributed,
+                                                    make_mesh)
+
+    # The sealed machine may have no interface but the loopback one; a
+    # world of one on one host bootstraps NCCL over it.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dev = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                 device="cuda", timeout_s=300)
+    try:
+        mesh = make_mesh()
+        if mesh.backend != "nccl" or dev.type != "cuda":
+            fail(f"the world of one runs {mesh.backend} on {dev}")
+        launches, ms = phase_flow_train(
+            torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
+            EXACT_STEP, EXACT_VAL, tag="nccl-world1", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"[nccl-world1] step {ms:.1f} ms in a world of one over NCCL "
+          f"against {plain_ms:.1f} ms without a process group (phase 11, "
+          f"this call); card {smi_line}")
+    return launches
+
+
+def par_flow_state(torch, cfg):
+    from motionpriorcmax_tpu_torch.training.trajectory_net import \
+        create_train_state
+
+    state = create_train_state(cfg, "cuda", torch.Generator().manual_seed(0))
+    state.optimizer = torch.optim.SGD(state.model.parameters(), lr=PAR_LR)
+    return state
+
+
+def par_traj_state(torch):
+    from motionpriorcmax_tpu_torch.cli.main import traj_train_configs
+    from motionpriorcmax_tpu_torch.training.raft_spline import \
+        create_raft_train_state
+
+    cfg, tc, loss_cfg = traj_train_configs(TAB2L5_CONFIG, (H, W),
+                                           TRAJ_SCHEDULE_STEPS)
+    state = create_raft_train_state(cfg, tc, "cuda",
+                                    torch.Generator().manual_seed(0))
+    state.optimizer = torch.optim.SGD(state.model.parameters(), lr=PAR_LR)
+    state.scheduler = None
+    return state, loss_cfg
+
+
+def par_inputs(torch, path, scfg, sloss):
+    """(state, step(state, device batch, mesh) -> loss) of a case's path:
+    seed-0 weights and SGD, t_ref from a torch.Generator seeded 11."""
+    from motionpriorcmax_tpu_torch.losses import get_reconstruction_times
+    from motionpriorcmax_tpu_torch.training.raft_spline import \
+        raft_train_step
+    from motionpriorcmax_tpu_torch.training.trajectory_net import train_step
+
+    if path == "flow":
+        state = par_flow_state(torch, scfg)
+        times = get_reconstruction_times(
+            sloss, torch.Generator().manual_seed(11), "cuda")
+
+        def step(st, batch, npos, mesh):
+            return train_step(st, batch, None, scfg, sloss, npos, times=times,
+                              mesh=mesh)["train_losses/total"]
+        return state, step
+    state, loss_cfg = par_traj_state(torch)
+    times = get_reconstruction_times(
+        loss_cfg, torch.Generator().manual_seed(11), "cuda")
+
+    def step(st, batch, npos, mesh):
+        return raft_train_step(st, batch, None, loss_cfg, npos, times=times,
+                               mesh=mesh)["train_losses/total"]
+    return state, step
+
+
+def par_model_state(state):
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in state.model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def per_rank_loss(mesh):
+    """The control of phases 44-45: `mesh` with its group sums taken out,
+    the gradient average kept."""
+    import copy
+
+    ctl = copy.copy(mesh)
+    ctl.data_sum = ctl.event_sum = lambda x: x
+    return ctl
+
+
+def update_excess(got, before, after):
+    """(worst ratio, its leaf, max|got - after|, max|after - before|) over
+    the leaves: max|got - after| over the leaf's own single-process update
+    max|after - before|, floored at 1e-3 of the largest leaf update."""
+    ups = {k: float((after[k].double() - before[k].double()).abs().max())
+           for k in after}
+    floor = 1e-3 * max(ups.values())
+    worst = (-1.0, None, 0.0, 0.0)
+    for k, want in after.items():
+        d = float((got[k].double() - want.double()).abs().max())
+        r = d / max(ups[k], floor)
+        if r > worst[0]:
+            worst = (r, k, d, ups[k])
+    return worst
+
+
+def rank_main(rank: int, port: int, workdir: str) -> int:
+    """One rank of phases 44-46 (`chip_smoke.py --rank R PORT DIR`): gloo
+    over CUDA tensors, the rank's card cuda:0 shared with the other rank.
+    Per case: the rank's share of the global batch (parallel.shard_batch),
+    PAR_STEPS sharded steps from the seed-0 weights, the first one's loss
+    and weights kept, launches, step ms, peak memory and all-reduced bytes
+    per step, and the control step (`per_rank_loss`) from the seed-0
+    weights; then MetricBank.reduce_across_processes and train_flow's
+    rank-0-only writes.  Writes <DIR>/rank<R>.pt."""
+    import torch
+
+    from motionpriorcmax_tpu_torch.metrics import MetricBank
+    from motionpriorcmax_tpu_torch.parallel import (initialize_distributed,
+                                                    make_mesh, shard_batch)
+    from motionpriorcmax_tpu_torch.training.loop import to_device, train_flow
+
+    t0 = time.perf_counter()
+    dev = initialize_distributed(f"127.0.0.1:{port}", PAR_RANKS, rank,
+                                 backend="gloo", device="cuda",
+                                 timeout_s=PAR_TIMEOUT_S)
+    batches = {name: {k: np.load(f"{workdir}/{name}.{k}.npy")
+                      for k in json.load(open(f"{workdir}/{name}.json"))}
+               for name in ("sorted", "unsorted", "traj")}
+    scfg, sloss = flow_configs({**DSEC_CONFIG, "loss": {
+        **DSEC_CONFIG["loss"], "knn_method": "softmax"}})
+    fns = traj_wrappers()
+    out = {"cases": {}, "setup_s": time.perf_counter() - t0}
+    for name, path, shape, which, _ in PAR_CASES:
+        mesh = make_mesh(*shape)
+        state, step = par_inputs(torch, path, scfg, sloss)
+        batch = batches[which]
+        npos = int(batch["num_pos_events"])
+        local = to_device(shard_batch(mesh, batch, npos), dev)
+        if any(v.device != dev for v in local.values()):
+            fail(f"rank {rank}: the batch is not on {dev}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"launches": [], "ms": [], "bytes": []}
+        for i in range(PAR_STEPS):
+            for f in fns.values():
+                f.launches = 0
+            b0 = mesh.reduced_bytes
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = float(step(state, local, npos, mesh))
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t1) * 1e3)
+            rec["launches"].append({k: f.launches for k, f in fns.items()})
+            rec["bytes"].append(mesh.reduced_bytes - b0)
+            if i == 0:
+                rec["loss"] = loss
+                rec["state"] = par_model_state(state)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["local_batch"] = tuple(local["events"].shape)
+        del state, step
+        torch.cuda.empty_cache()
+        state, step = par_inputs(torch, path, scfg, sloss)
+        rec["control_loss"] = float(step(state, local, npos,
+                                         per_rank_loss(mesh)))
+        rec["control_state"] = par_model_state(state)
+        out["cases"][name] = rec
+        del state, step, local
+        torch.cuda.empty_cache()
+
+    # Phase 46: the metric bank over the two ranks, and train_flow's
+    # writes (rank 0 alone) on the (2, 1) mesh, a workdir per rank.
+    bank = MetricBank()
+    bank.update_device({"epe": torch.tensor(float(rank + 1), device=dev)})
+    out["bank"] = bank.reduce_across_processes().compute()
+    mesh = make_mesh(2, 1)
+    local = shard_batch(mesh, batches["unsorted"],
+                        int(batches["unsorted"]["num_pos_events"]))
+    rundir = f"{workdir}/run{rank}"
+    res = train_flow(scfg, sloss, [local], [local], rundir, device=dev,
+                     max_epochs=1, num_pos_events=int(local["num_pos_events"]),
+                     log_every=1, seed=0, mesh=mesh)
+    out["train_flow"] = res
+    out["written"] = sorted(
+        os.path.relpath(os.path.join(d, f), rundir)
+        for d, _, files in os.walk(rundir) for f in files)
+    torch.save(out, f"{workdir}/rank{rank}.pt")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    print(f"[parallel rank {rank}] done in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def phase_parallel(torch, scfg, sloss, sorted_batch, unsorted_batch,
+                   traj_batch, smi_line):
+    """Phases 44-46: two ranks on the one card over gloo (CUDA tensors, the
+    collectives through the host), each a process of this script
+    (`--rank`): the single-process step of each case on the card here,
+    then the world, then each rank's first step against it.  Two ranks on
+    one card show that the kernels run on data and event shards and that
+    the sharded step gives the same numbers; their times are not a
+    scaling measurement.  Returns {case: [launches per step of each
+    rank]}."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, batch in (("sorted", sorted_batch),
+                            ("unsorted", unsorted_batch),
+                            ("traj", traj_batch)):
+            keys = [k for k, v in batch.items() if k in (
+                "events", "lut_cell_ends", "ev_repr", "num_pos_events")]
+            for k in keys:
+                np.save(f"{workdir}/{name}.{k}.npy", np.asarray(batch[k]))
+            with open(f"{workdir}/{name}.json", "w") as fh:
+                json.dump(keys, fh)
+        # The single-process steps on the global batches.
+        from motionpriorcmax_tpu_torch.training.loop import to_device
+
+        refs, by_batch = {}, {}
+        t0 = time.perf_counter()
+        for name, path, _, which, _ in PAR_CASES:
+            if which not in by_batch:
+                batch = {"sorted": sorted_batch, "unsorted": unsorted_batch,
+                         "traj": traj_batch}[which]
+                state, step = par_inputs(torch, path, scfg, sloss)
+                before = par_model_state(state)
+                loss = float(step(state, to_device(batch, "cuda"),
+                                  int(batch["num_pos_events"]), None))
+                by_batch[which] = (loss, before, par_model_state(state))
+                del state, step
+                torch.cuda.empty_cache()
+            refs[name] = by_batch[which]
+        print(f"[parallel] single-process reference steps "
+              f"{time.perf_counter() - t0:.1f} s")
+        port = free_port()
+        env = dict(os.environ)
+        logs = [open(f"{workdir}/rank{r}.log", "w+") for r in
+                range(PAR_RANKS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             str(port), workdir], stdout=logs[r], stderr=subprocess.STDOUT,
+            env=env) for r in range(PAR_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, PAR_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, fh in enumerate(logs):
+            fh.seek(0)
+            text = fh.read()
+            fh.close()
+            print(f"[parallel] rank {r} exit {procs[r].returncode}, its "
+                  f"output's end:")
+            for line in text.splitlines()[-25:]:
+                print(f"[parallel]   {line}")
+        if any(p.returncode != 0 for p in procs):
+            fail(f"a rank of the two-rank world failed or ran out its "
+                 f"{PAR_TIMEOUT_S} s: exit codes "
+                 f"{[p.returncode for p in procs]}")
+        outs = [torch.load(f"{workdir}/rank{r}.pt", weights_only=False)
+                for r in range(PAR_RANKS)]
+    print(f"[parallel] the world of {PAR_RANKS} ranks on one card (gloo) "
+          f"ran {wall:.1f} s, start to exit")
+    launches, faults = {}, []
+    for name, path, shape, which, want in PAR_CASES:
+        ref_loss, before, after = refs[name]
+        tol_loss, tol_up = PAR_LOSS_RTOL[path], PAR_UPDATE_RTOL[path]
+        tag = f"parallel-{name}"
+        largest = max(float((after[k] - before[k]).abs().max())
+                      for k in after)
+        launches[name] = []
+        for r, out in enumerate(outs):
+            rec = out["cases"][name]
+            want_all = {k: want.get(k, 0) for k in rec["launches"][0]}
+            if any(c != want_all for c in rec["launches"]):
+                faults.append(f"{tag} rank {r}: expected {want_all} launches "
+                              f"per step, got {rec['launches']}")
+            launches[name].append(rec["launches"][0])
+            rel = abs(rec["loss"] - ref_loss) / abs(ref_loss)
+            ratio, key, diff, up = update_excess(rec["state"], before, after)
+            c_rel = abs(rec["control_loss"] - ref_loss) / abs(ref_loss)
+            c_ratio, c_key, c_diff, c_up = update_excess(
+                rec["control_state"], before, after)
+            print(f"[{tag}] rank {r} mesh {shape} local batch "
+                  f"{rec['local_batch']}: loss {rec['loss']:.6f} against "
+                  f"the single-process {ref_loss:.6f} (rel diff {rel:.2e}, "
+                  f"bound {tol_loss:g}); weights after the SGD step: "
+                  f"largest |diff| / the leaf's update {ratio:.3e} at {key} "
+                  f"(|diff| {diff:.3e}, update {up:.3e}; bound "
+                  f"{tol_up:g}; the largest leaf update {largest:.3e}); "
+                  f"control (per-rank loss, gradients averaged): loss rel "
+                  f"diff {c_rel:.2e}, weights {c_ratio:.3e} at {c_key} "
+                  f"(|diff| {c_diff:.3e}, update {c_up:.3e}; must exceed "
+                  f"{tol_up:g}); step ms "
+                  f"{[round(x, 1) for x in rec['ms']]} (first: the compared "
+                  f"step), peak memory {rec['peak_gib']:.2f} GiB, bytes "
+                  f"all-reduced per step {rec['bytes'][-1]}, launches per "
+                  f"step {rec['launches'][-1]}; card {smi_line}")
+            if not rel <= tol_loss or not ratio <= tol_up:
+                faults.append(f"{tag} rank {r}: the sharded step left the "
+                              "single-process step's bounds")
+            if not c_ratio > tol_up:
+                faults.append(f"{tag} rank {r}: the weights' bound does "
+                              "not tell the per-rank loss from the global "
+                              "batch's")
+    # Phase 46.
+    for r, out in enumerate(outs):
+        print(f"[parallel-bank] rank {r}: reduce_across_processes of "
+              f"epe 1 and 2 -> {out['bank']}; train_flow wrote "
+              f"{out['written']}, returned {out['train_flow']}")
+        if abs(out["bank"].get("epe", 0.0) - 1.5) > 1e-12:
+            fail(f"rank {r}: the reduced metric is {out['bank']}, not 1.5")
+    w0, w1 = outs[0]["written"], outs[1]["written"]
+    if w1 or "scalars.jsonl" not in w0 or not any(
+            f.startswith("checkpoints/step_") for f in w0):
+        fail(f"rank 0 wrote {w0} and rank 1 {w1}: rank 0 alone writes the "
+             "scalars and the checkpoints")
+    if outs[0]["train_flow"] != outs[1]["train_flow"]:
+        faults.append(f"train_flow returned {outs[0]['train_flow']} and "
+                      f"{outs[1]['train_flow']} on the two ranks")
+    if faults:
+        fail("; ".join(faults))
+    return launches
+
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -4179,7 +4588,6 @@ def main() -> int:
     del unsorted_val
     phase_flow_breakdown(torch, scfg, sloss, unsorted_train,
                          tag="unsorted-breakdown")
-    del unsorted_train
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch, {"knn_method": "softmax"}, True,
                            UNSORTED_STEP, tag="unsorted-card-vs-cpu",
@@ -4242,7 +4650,7 @@ def main() -> int:
         torch, scfg, sloss, [{k: v for k, v in smp.items() if k != "voxel"}
                              for smp in windows],
         train_batch, val_batch, smi_line, RENDER_SOFTMAX, "panel-softmax")
-    del train_batch, val_batch, host_voxel, windows
+    del windows
     torch.cuda.empty_cache()
     render_cpu_err = phase_panels_card_vs_cpu(torch)
     print(f"[done] image panel phases {time.perf_counter() - t_p:.1f} s")
@@ -4282,13 +4690,26 @@ def main() -> int:
     store = {}
     with first_lookup(torch, store), torch.no_grad():
         model(torch.from_numpy(selfsup["ev_repr"]).cuda())
-    del model, selfsup
+    del model
     bf16_bwd = phase_bf16_bwd(torch, store["levels"], store["c_total"],
                               "bf16-bwd-kernel-vs-plain")
     del store
     torch.cuda.empty_cache()
     bf16_cpu_err = phase_bf16_card_vs_cpu(torch)
     print(f"[done] bf16 RAFT-Spline phases {time.perf_counter() - t_16:.1f} s")
+
+    # Multi-process training: a world of one over NCCL (phase 43), then two
+    # ranks on the card over gloo (phases 44-46)
+    t_par = time.perf_counter()
+    nccl_launches = phase_nccl_world(
+        torch, fcfg, floss, {**train_batch, "voxel": host_voxel[0]},
+        {**val_batch, "voxel": host_voxel[1]}, smi_line, exact_ms)
+    del val_batch, host_voxel
+    torch.cuda.empty_cache()
+    par_launches = phase_parallel(torch, scfg, sloss, train_batch,
+                                  unsorted_train, selfsup, smi_line)
+    del train_batch, unsorted_train, selfsup
+    print(f"[done] multi-process phases {time.perf_counter() - t_par:.1f} s")
     # Row 1 in the bf16 requests (phase 40): launches per request (the warm-up
     # included) and the kernel on their bf16 pyramid.
     kernels[0]["bf16_compute"] = {"request_launches": bf16_launches / 4,
@@ -4342,6 +4763,17 @@ def main() -> int:
                 **infer_numbers}
         kernels.append(entry)
 
+    for entry in kernels:
+        # Phases 43-45: launches per step of each rank on the sharded paths
+        # (the world of one: over its whole train_flow run).
+        kname = entry["name"]
+        entry["sharded_launches"] = {
+            case: [per_rank.get(kname, 0) for per_rank in ranks]
+            for case, ranks in par_launches.items()
+            if any(per_rank.get(kname, 0) for per_rank in ranks)}
+        if nccl_launches.get(kname):
+            entry["sharded_launches"]["nccl_world1_run"] = \
+                nccl_launches[kname]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
@@ -4351,4 +4783,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank":
+        # One rank of phases 44-46, started by phase_parallel.
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -3,16 +3,24 @@
 flow-train: self-supervised DSEC flow training (UNet + focus loss), with
 the JAX CLI's --config / --workdir / --ckp_path / --event-capacity /
 --event-capacity-buckets / --log-every / --device-voxelize (voxel grids
-built inside the step from the batch's events instead of by the loader),
-plus --device; each epoch writes the image panel of five val samples
-under <workdir>/images/.
+built inside the step from the batch's events instead of by the loader)
+/ --mesh / --coordinator / --num-processes / --process-id, plus --device;
+each epoch writes the image panel of five val samples under
+<workdir>/images/.
 dsec-infer: DSEC benchmark-submission PNGs of the seven test sequences,
 with the JAX CLI's --config / --timestamp-dir / --ckpt-step, plus --device.
 extract-weights: a checkpoint -> bare weights .npz that dsec-infer reads.
 traj-val: RAFT-Spline trajectory validation on EVIMO2 or MultiFlow, with
 the JAX CLI's arguments, Hydra-style overrides and printout, plus --device.
 traj-train: RAFT-Spline training, self-supervised or supervised, with the
-JAX CLI's arguments except --mesh and the multi-host flags, plus --device.
+JAX CLI's arguments, plus --device.
+
+flow-train and traj-train run as one process per rank: each runs the same
+command with its own --process-id, the same --coordinator host:port and
+--num-processes, over NCCL with one card per rank (--device cuda) or gloo
+on the CPU.  --mesh DATA,EVENT lays the ranks out (default: gcd(batch,
+ranks), 1, which must use every rank); each step then makes the
+single-device step of the global batch (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -48,6 +56,79 @@ def flow_configs(config: dict):
     return cfg, loss_cfg
 
 
+def parse_mesh(value: str):
+    """--mesh: DATA,EVENT, two positive integers (JAX: _parse_mesh)."""
+    parts = value.split(",")
+    try:
+        if len(parts) != 2:
+            raise ValueError
+        data, event = (int(p) for p in parts)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected DATA,EVENT axis sizes, got {value!r}") from None
+    if data <= 0 or event <= 0:
+        raise argparse.ArgumentTypeError("mesh axis sizes must be positive")
+    return (data, event)
+
+
+def _add_process_args(p) -> None:
+    """flow-train's and traj-train's multi-process flags."""
+    p.add_argument("--mesh", default=None, type=parse_mesh,
+                   help="DATA,EVENT mesh axis sizes (default: "
+                        "gcd(batch, ranks),1; DATA x EVENT must be the "
+                        "number of processes)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's process-group store (run "
+                        "this command once per rank)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
+def join_processes(args, cmd: str):
+    """This process's device, after joining the process group when the
+    multi-process flags ask for one (parallel.initialize_distributed);
+    exits when the device is absent or the flags are incomplete."""
+    from ..parallel import initialize_distributed
+
+    try:
+        return initialize_distributed(args.coordinator, args.num_processes,
+                                      args.process_id, device=args.device)
+    except (RuntimeError, ValueError) as exc:
+        raise SystemExit(f"{cmd}: {exc}") from None
+
+
+def cli_mesh(args, batch_size: int, cmd: str):
+    """(mesh, train shard, val shard): None, None, None without a process
+    group; else --mesh, by default (gcd(batch, ranks), 1) as in the JAX
+    CLI, the data rank's train shard and the rank's own val shard.  Exits
+    when the mesh leaves a rank idle or does not split the batch, and when
+    --event-capacity-buckets meets several processes."""
+    import math
+
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh
+
+    if not dist.is_initialized():
+        if args.mesh not in (None, (1, 1)):
+            raise SystemExit(f"{cmd}: --mesh {args.mesh} needs "
+                             "--num-processes and --coordinator")
+        return None, None, None
+    world = dist.get_world_size()
+    if world > 1 and getattr(args, "event_capacity_buckets", None):
+        raise SystemExit(f"{cmd}: --event-capacity-buckets is single-process "
+                         "only (one static capacity across ranks)")
+    data, event = args.mesh or (math.gcd(batch_size, world), 1)
+    if batch_size % data:
+        raise SystemExit(f"{cmd}: batch {batch_size} does not split over "
+                         f"{data} data ranks")
+    try:
+        mesh = make_mesh(data, event)
+    except ValueError as exc:
+        raise SystemExit(f"{cmd}: {exc}") from None
+    return mesh, (mesh.data_index, mesh.data), (mesh.rank, mesh.world)
+
+
 def cmd_flow_train(args) -> int:
     """Self-supervised DSEC flow training (reference scripts/flow_training.py)."""
     from datetime import datetime
@@ -55,31 +136,32 @@ def cmd_flow_train(args) -> int:
     from ..config import load_yaml, propagate_config
     from ..data.dsec import DsecDatasetProvider
     from ..data.loader import DataLoader
-    from ..device import resolve_device
     from ..training.checkpoint import restore_checkpoint
     from ..training.loop import train_flow
     from ..training.trajectory_net import create_train_state
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as exc:
-        raise SystemExit(f"flow-train: {exc}") from None
+    device = join_processes(args, "flow-train")
     config = propagate_config(load_yaml(args.config))
     cfg, loss_cfg = flow_configs(config)
     dc = config["data"]
+    mesh, train_shard, val_shard = cli_mesh(args, dc["batch_size"],
+                                            "flow-train")
+    is_main = mesh is None or mesh.is_main
     pab = dc.get("polarity_aware_batching", False)
     capacity = args.event_capacity
     pos_capacity = capacity // 2 if pab else None
 
-    def make_loader(split, shuffle):
+    def make_loader(split, shuffle, shard):
         provider = DsecDatasetProvider(
             dc["data_path"], split=split, num_bins=dc["num_bins"],
             polarity_aware_batching=pab,
             host_voxelize=not args.device_voxelize,
             voxel_norm_type=dc.get("norm_type", "mean_std"),
             voxel_quantile=dc.get("quantile", 0.0))
-        return DataLoader(provider, batch_size=dc["batch_size"],
-                          capacity=capacity, shuffle=shuffle,
+        return DataLoader(provider,
+                          batch_size=dc["batch_size"] // (mesh.data if mesh
+                                                          else 1),
+                          capacity=capacity, shuffle=shuffle, shard=shard,
                           num_workers=dc.get("num_workers", 8),
                           polarity_aware=pab, pos_capacity=pos_capacity,
                           capacity_buckets=args.event_capacity_buckets,
@@ -92,18 +174,19 @@ def cmd_flow_train(args) -> int:
     if args.ckp_path:
         resume_state, step = restore_checkpoint(
             args.ckp_path, create_train_state(cfg, device))
-        print(f"resumed from {args.ckp_path} @ step {step}")
+        if is_main:
+            print(f"resumed from {args.ckp_path} @ step {step}")
     workdir = args.workdir or f"runs/flow_{datetime.now():%Y%m%d_%H%M%S}"
-    val_loader = make_loader("val", False)
+    val_loader = make_loader("val", False, val_shard)
     # The epoch's image panel: val samples, each collated as the val
     # loader collates a batch.
-    out = train_flow(cfg, loss_cfg, make_loader("train", True), val_loader,
-                     workdir, device=device,
+    out = train_flow(cfg, loss_cfg, make_loader("train", True, train_shard),
+                     val_loader, workdir, device=device,
                      max_epochs=config.get("trainer", {}).get("max_epochs", 100),
                      num_pos_events=pos_capacity if pab else -1,
                      resume_state=resume_state, log_every=args.log_every,
                      image_log_dataset=val_loader.dataset,
-                     image_log_collate=val_loader.collate)
+                     image_log_collate=val_loader.collate, mesh=mesh)
     print(f"done: best={out['best']:.4f} steps={out['steps']}")
     return 0
 
@@ -324,25 +407,33 @@ def run_traj_validation(model, provider, bsz: int,
                         flow_timestamps: Sequence[float],
                         min_traj_len: Optional[float] = None,
                         max_traj_len: Optional[float] = None,
-                        iters: Optional[int] = None) -> dict:
+                        iters: Optional[int] = None,
+                        shard: Optional[tuple] = None) -> dict:
     """One validation pass over `provider` (indexable samples) -> metrics,
     with `iters` refinement iterations (the model's own when None).
 
     Full batches only, as the JAX CLI does; metric sums stay on the device
-    until the end."""
+    until the end.  `shard=(rank, world)` validates every world-th sample
+    from `rank` on and sums the metric sums over the process group's
+    ranks (MetricBank.reduce_across_processes)."""
     from ..metrics import MetricBank
     from ..training.raft_spline import raft_validation_step
 
     device = next(model.parameters()).device
     bank = MetricBank()
-    n = len(provider)
-    bsz = min(bsz, n)
+    idx = list(range(len(provider)))
+    if shard is not None:
+        idx = idx[shard[0]::shard[1]]
+    n = len(idx)
+    bsz = max(1, min(bsz, n))
     for i0 in range(0, n - n % bsz, bsz):
-        samples = [provider[i] for i in range(i0, i0 + bsz)]
+        samples = [provider[i] for i in idx[i0:i0 + bsz]]
         batch = stack_traj_batch(samples, device,
                                  model.cfg.use_boundary_images)
         bank.update_device(raft_validation_step(
             model, batch, flow_timestamps, min_traj_len, max_traj_len, iters))
+    if shard is not None:
+        bank = bank.reduce_across_processes()
     return bank.compute()
 
 
@@ -437,16 +528,14 @@ def cmd_traj_train(args) -> int:
     from ..config import compose
     from ..data.evimo2 import Evimo2Provider
     from ..data.loader import DataLoader
-    from ..device import resolve_device
     from ..training.loop import train_traj
     from ..training.raft_spline import create_raft_train_state
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as exc:
-        raise SystemExit(f"traj-train: {exc}") from None
+    device = join_processes(args, "traj-train")
     cfg_tree = compose(args.config_dir, args.config_name, args.overrides)
     ds, tcfg = cfg_tree["dataset"], cfg_tree["training"]
+    mesh, train_shard, val_shard = cli_mesh(args, tcfg["batch_size"],
+                                            "traj-train")
     nbins_context = cfg_tree["model"]["num_bins"]["context"]
     supervised = args.loss == "supervised"
     pab = (cfg_tree["loss"].get("polarity_aware_batching", False)
@@ -488,7 +577,8 @@ def cmd_traj_train(args) -> int:
     image_hw = tuple(dataset[0]["ev_repr"].shape[-2:])
     cfg, tc, loss_cfg = traj_train_configs(cfg_tree, image_hw, args.max_steps)
     loader = DataLoader(
-        dataset, batch_size=tcfg["batch_size"], capacity=capacity,
+        dataset, batch_size=tcfg["batch_size"] // (mesh.data if mesh else 1),
+        capacity=capacity, shard=train_shard,
         polarity_aware=pab, pos_capacity=pos_capacity,
         num_workers=cfg_tree.get("hardware", {}).get("num_workers", 8),
         lut_cell_sort_params=None if supervised else (
@@ -519,7 +609,7 @@ def cmd_traj_train(args) -> int:
                 bsz=args.val_batch_size, flow_timestamps=val_ts,
                 min_traj_len=vc.get("min_traj_len"),
                 max_traj_len=vc.get("max_traj_len"),
-                iters=cfg_tree["model"]["num_iter"]["test"])
+                iters=cfg_tree["model"]["num_iter"]["test"], shard=val_shard)
 
     state = create_raft_train_state(cfg, tc, device,
                                     torch.Generator().manual_seed(0))
@@ -530,7 +620,7 @@ def cmd_traj_train(args) -> int:
                      gamma=tcfg.get("gamma"),
                      gamma_sample_k=tcfg.get("gamma_sample_k"),
                      log_every=args.log_every, ckpt_every=args.ckpt_every,
-                     val_every=args.val_every, validate=validate)
+                     val_every=args.val_every, validate=validate, mesh=mesh)
     print(f"done: {out['steps']} steps -> {workdir}")
     return 0
 
@@ -556,6 +646,7 @@ def main(argv=None) -> int:
                    help="voxelize the batch's (capacity-truncated) events "
                         "inside the step, on the device, instead of every "
                         "event of the window in the loader")
+    _add_process_args(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda fails when absent")
     p.set_defaults(fn=cmd_flow_train)
@@ -596,6 +687,7 @@ def main(argv=None) -> int:
                    help="validation + best-k checkpoints every N steps (0 "
                         "disables; needs an eval split on disk)")
     p.add_argument("--val-batch-size", type=int, default=4)
+    _add_process_args(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda fails when absent")
     p.add_argument("overrides", nargs="*")
@@ -607,7 +699,13 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_extract_weights)
 
     args = parser.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

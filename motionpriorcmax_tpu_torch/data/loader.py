@@ -46,15 +46,24 @@ class DataLoader:
                  collate_fn: Optional[Callable] = None,
                  lut_cell_sort_params: Optional[tuple] = None,
                  pin_memory: bool = False,
-                 capacity_buckets: Optional[Sequence[int]] = None):
+                 capacity_buckets: Optional[Sequence[int]] = None,
+                 shard: Optional[tuple] = None):
         """`collate_fn(samples) -> batch` replaces the fixed-capacity
         collate and then runs in the producer thread; `pin_memory` stacks
         the default collate's arrays into pinned host memory (for a card:
         training/loop.py::to_device then copies them asynchronously);
         `capacity_buckets` (ascending) pads each batch to the smallest
         bucket covering its largest sample instead of `capacity` (with
-        polarity_aware, each half at half the bucket)."""
+        polarity_aware, each half at half the bucket).  `shard=(rank,
+        world)` is the distributed sampler: every rank shuffles the same
+        order (the shared seed) and takes every world-th sample of it from
+        its rank on, so the ranks' batches are disjoint slices of one
+        global batch.  The order is first cut to a multiple of `world`
+        (JAX's loader keeps the remainder), so that every rank reads
+        as many batches as the others, as a step that meets in
+        collectives needs."""
         self.dataset = dataset
+        self.shard = shard
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
@@ -109,12 +118,17 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.shard is not None:
+            n //= self.shard[1]
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        if self.shard is not None:
+            rank, world = self.shard
+            order = order[:len(order) - len(order) % world][rank::world]
         self._epoch += 1
         batches = [order[i:i + self.batch_size]
                    for i in range(0, len(order), self.batch_size)]

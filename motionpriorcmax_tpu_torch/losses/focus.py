@@ -460,11 +460,14 @@ def warp_events(cfg: FocusLossConfig, events: torch.Tensor,
 
 def make_iwes(cfg: FocusLossConfig, warped_yx: torch.Tensor,
               events: torch.Tensor, t_ref: torch.Tensor,
-              num_pos_events: int) -> torch.Tensor:
+              num_pos_events: int, mesh=None) -> torch.Tensor:
     """IWEs of the warped events with validity / dt / border weights.
 
     Returns [B*n_tref, H, W] or, with polarity-aware batching,
     [B*n_tref, 2, H, W] (positive / negative planes), blurred 3x3 (sigma 1).
+    With a mesh, `events` are this rank's event shard (positives first,
+    `num_pos_events` of them) and the partial votes are summed over the
+    event axis before the blur.
     """
     h, w = cfg.image_shape
     b, n_tref, m, _ = warped_yx.shape
@@ -496,13 +499,16 @@ def make_iwes(cfg: FocusLossConfig, warped_yx: torch.Tensor,
         iwes = torch.stack([pos, neg], dim=1)
     else:
         iwes = vote(coords, weights)
+    if mesh is not None:
+        iwes = mesh.event_sum(iwes)
     return ev_ops.gaussian_blur_3x3(iwes, sigma=1.0)
 
 
 def calculate_smooth_loss(cfg: FocusLossConfig, flow_lut: torch.Tensor,
-                          flow_to_next: Optional[torch.Tensor]
+                          flow_to_next: Optional[torch.Tensor], mesh=None
                           ) -> torch.Tensor:
-    """Charbonnier smoothness of the selected flow field."""
+    """Charbonnier smoothness of the selected flow field (with a mesh, its
+    mean over the global batch)."""
     if cfg.smooth_weight == 0:
         return torch.zeros((), dtype=flow_lut.dtype, device=flow_lut.device)
     if cfg.smooth_type == "on_flow_to_tref":
@@ -515,13 +521,13 @@ def calculate_smooth_loss(cfg: FocusLossConfig, flow_lut: torch.Tensor,
     ff = field.permute(0, 1, 4, 5, 2, 3)
     c, hq, wq = ff.shape[-3:]
     return cfg.smooth_weight * grad_ops.smoothness_loss(
-        ff.reshape(-1, c, hq, wq))
+        ff.reshape(-1, c, hq, wq), mesh)
 
 
 def focus_loss(cfg: FocusLossConfig, trajectories: torch.Tensor,
                times: torch.Tensor, events: torch.Tensor,
                num_pos_events: int = -1,
-               cell_ends: Optional[torch.Tensor] = None
+               cell_ends: Optional[torch.Tensor] = None, mesh=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                           Dict[str, torch.Tensor]]:
     """Focus + smoothness loss.
@@ -532,6 +538,14 @@ def focus_loss(cfg: FocusLossConfig, trajectories: torch.Tensor,
       events: [B, M, 6], positives packed first with polarity-aware batching.
       num_pos_events: static positive capacity per sample.
       cell_ends: host-computed LUT-cell boundaries of cell-sorted events.
+      mesh: a parallel.Mesh, or None on one device.  Given one, the
+        arguments are this rank's share of the global batch
+        (parallel.shard_batch): its data rank's samples, their events cut
+        to its event shard with `cell_ends` clipped to it, while
+        `num_pos_events` stays the global capacity.  The partial IWEs are
+        summed over the event axis, and the objective's and the
+        smoothness term's means are taken over the global batch, so the
+        loss is the single-device loss of the global batch on every rank.
 
     Returns:
       (loss, log metadata, misc metadata with the detached IWEs
@@ -543,12 +557,15 @@ def focus_loss(cfg: FocusLossConfig, trajectories: torch.Tensor,
     flow_lut, flow_to_next = interpolate_flow(
         cfg, trajectories[:, :cfg.num_tref], trajectories[:, cfg.num_tref:])
     warped = warp_events(cfg, events, flow_lut, cell_ends)
-    iwes = make_iwes(cfg, warped, events, t_ref, num_pos_events)
+    npos = num_pos_events if mesh is None else \
+        mesh.local_capacity(num_pos_events)
+    iwes = make_iwes(cfg, warped, events, t_ref, npos, mesh)
 
     focus = grad_ops.focus_objective(iwes, loss_type=cfg.loss_type,
                                      norm=cfg.focus_loss_norm,
-                                     epsilon=cfg.focus_loss_epsilon)
-    smooth = calculate_smooth_loss(cfg, flow_lut, flow_to_next)
+                                     epsilon=cfg.focus_loss_epsilon,
+                                     mesh=mesh)
+    smooth = calculate_smooth_loss(cfg, flow_lut, flow_to_next, mesh)
     loss = focus + smooth
 
     h, w = cfg.image_shape

@@ -192,3 +192,36 @@ class MetricBank:
 
     def reset(self) -> None:
         self.state = {}
+
+    def reduce_across_processes(self) -> "MetricBank":
+        """The bank with each (sum, count) summed over the world's ranks:
+        per-rank validation shards, then one all-reduce of the [K, 2]
+        float64 sums (JAX: an all-gather, which gloo lacks for CUDA
+        tensors).  Keys that some rank lacks count 0 there.  The same bank
+        on every rank; no-op without a process group or in a world of
+        one."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self
+        names = [None] * dist.get_world_size()
+        dist.all_gather_object(names, sorted(self.state))
+        keys = sorted(set().union(*names))
+        if self.state:
+            dev = next(iter(self.state.values()))[1].device
+        elif dist.get_backend() == "nccl":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        else:
+            dev = torch.device("cpu")
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        local = torch.stack([
+            torch.stack([torch.as_tensor(v, dtype=torch.float64).to(dev)
+                         for v in self.state.get(k, (zero, zero))])
+            for k in keys]) if keys else torch.zeros(
+                (0, 2), dtype=torch.float64, device=dev)
+        if keys:
+            dist.all_reduce(local)
+        out = MetricBank()
+        out.state = {k: (local[i, 0], local[i, 1])
+                     for i, k in enumerate(keys)}
+        return out

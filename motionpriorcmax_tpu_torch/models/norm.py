@@ -24,17 +24,31 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     biased variance included.  Eval mode uses the running statistics.
     y = (x - mean) * (rsqrt(var + eps) * weight) + bias in f32, cast back
     to the input's dtype.
+
+    `stats_sum` (set by parallel.sync_batch_norm, None otherwise) sums a
+    tensor over the ranks that share the batch: the train-mode statistics
+    are then those of the global batch, from the group sums of sum(x),
+    sum(x^2) and the element count.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.stats_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if self.stats_sum is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                sq = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                c = xf.shape[1]
+                sums = self.stats_sum(torch.cat([
+                    xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                    torch.full_like(xf[0, :1, 0, 0], xf.numel() // c)]))
+                mean = sums[:c] / sums[-1]
+                sq = sums[c:2 * c] / sums[-1]
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(
                     self.momentum * mean)

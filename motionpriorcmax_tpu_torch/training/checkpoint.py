@@ -348,7 +348,8 @@ _INDEX = "index.json"
 
 
 def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
-                    metric: Optional[float] = None) -> Path:
+                    metric: Optional[float] = None, mesh=None
+                    ) -> Optional[Path]:
     """Write `state` (model, optimizer, the learning-rate schedule when the
     state has one, step) to <ckpt_dir>/step_<step>.pt.
 
@@ -356,7 +357,16 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
     (the reference's ModelCheckpoint(save_top_k=5) on val_losses/EPE, or
     val/masked_TEPE for traj-train); without, the `keep` latest.  The index
     of retained steps and their metrics is <ckpt_dir>/index.json.
+
+    With a mesh (parallel.Mesh; the state is the same on every rank) only
+    rank 0 writes, and every rank returns after it has (a barrier); the
+    other ranks return None.
     """
+    if mesh is not None:
+        out = (save_checkpoint(ckpt_dir, state, step, keep, metric)
+               if mesh.is_main else None)
+        mesh.barrier()
+        return out
     path = Path(ckpt_dir)
     path.mkdir(parents=True, exist_ok=True)
     index_path = path / _INDEX

@@ -1,4 +1,4 @@
-"""Training loops on one device.
+"""Training loops, on one device or on each rank of a parallel.Mesh.
 
 train_flow (JAX: training/loop.py::train_flow): per epoch, train steps
 over the loader, then the image panel of five validation samples
@@ -15,6 +15,18 @@ without validation, a checkpoint every ckpt_every steps.
 
 Scalars go to <workdir>/scalars.jsonl and, when the `tensorboard` package
 is installed, to a TensorBoard event file under <workdir>/tb/.
+
+With `mesh=` (one process per rank, JAX: train_flow's multi-host path)
+each data rank's loader yields its batch // data samples
+(`DataLoader(shard=(mesh.data_index, mesh.data))`), and each step cuts the
+rank's event shard from them and makes the single-device step of the
+global batch; validation runs on each rank's own shard of the val split
+(`DataLoader(shard=(mesh.rank, mesh.world))`), its metric sums then
+summed over the world (MetricBank.reduce_across_processes).  Rank 0 alone
+writes the scalars, the image panel and the checkpoints, and the ranks
+meet at a barrier after each checkpoint.  Validation then draws its t_ref
+from a generator of its own, so that the train draws stay the same on
+every rank whatever its val shard's length.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from ..device import no_tf32
 from ..losses import FocusLossConfig, focus_loss, get_reconstruction_times
 from ..metrics import MetricBank
 from ..ops import events as ev_ops
+from ..parallel import event_shard_batch, replicate
 from ..utils.image_logging import ImagePanelLogger, log_flow_epoch_images
 from .checkpoint import save_checkpoint
 from .raft_spline import (RAFTTrainState, raft_supervised_train_step,
@@ -177,8 +190,8 @@ def train_flow(cfg: TrajectoryNetConfig, loss_cfg: FocusLossConfig,
                log_every: int = 200, monitor: str = "val_losses/EPE",
                resume_state: Optional[TrainState] = None,
                image_log_dataset=None,
-               image_log_collate: Optional[Callable] = None
-               ) -> Dict[str, float]:
+               image_log_collate: Optional[Callable] = None,
+               mesh=None) -> Dict[str, float]:
     """Self-supervised flow training; returns {'best', 'steps'}.
 
     Batches are numpy dicts from data/loader.py (cell-sorted events,
@@ -188,28 +201,37 @@ def train_flow(cfg: TrajectoryNetConfig, loss_cfg: FocusLossConfig,
     `image_log_collate` (collate_fn([sample]) -> batch), each epoch's
     training steps are followed by the image panel of five of its samples
     under <workdir>/images/ (and in TensorBoard), before validation.
+    With `mesh`, the loaders are the rank's shards and the module
+    docstring says what each rank does.
     """
-    logger = ScalarLogger(workdir)
+    is_main = mesh is None or mesh.is_main
+    logger = ScalarLogger(workdir) if is_main else None
     state = resume_state or create_train_state(
         cfg, device, torch.Generator().manual_seed(seed))
+    if mesh is not None:
+        replicate(mesh, state)
     dev = next(state.model.parameters()).device
     gen = torch.Generator().manual_seed(seed + 1)
+    val_gen = gen if mesh is None else torch.Generator().manual_seed(seed + 2)
     best = float("inf")
     t_last = time.perf_counter()
     try:
         for _ in range(max_epochs):
             for batch in train_loader:
                 npos = batch.get("num_pos_events", num_pos_events)
+                if mesh is not None:
+                    batch = event_shard_batch(mesh, batch, npos)
                 logs = train_step(state, to_device(batch, dev), gen, cfg,
-                                  loss_cfg, npos)
-                if state.step % log_every == 0:
+                                  loss_cfg, npos, mesh=mesh)
+                if is_main and state.step % log_every == 0:
                     scalars = {k: float(v) for k, v in logs.items()}
                     now = time.perf_counter()
                     scalars["steps_per_s"] = log_every / (now - t_last)
                     t_last = now
                     logger.log(state.step, scalars)
 
-            if image_log_dataset is not None and image_log_collate is not None:
+            if (is_main and image_log_dataset is not None
+                    and image_log_collate is not None):
                 log_flow_epoch_images(
                     ImagePanelLogger(workdir, tb_writer=logger.tb),
                     image_log_dataset, image_log_collate,
@@ -221,19 +243,24 @@ def train_flow(cfg: TrajectoryNetConfig, loss_cfg: FocusLossConfig,
                 for batch in val_loader:
                     npos = batch.get("num_pos_events", num_pos_events)
                     bank.update_device(eval_step(
-                        state, to_device(batch, dev), gen, cfg, loss_cfg,
-                        npos))
+                        state, to_device(batch, dev), val_gen, cfg,
+                        loss_cfg, npos))
+                if mesh is not None:
+                    bank = bank.reduce_across_processes()
                 val = bank.compute()
-                logger.log(state.step, val)
+                if is_main:
+                    logger.log(state.step, val)
                 metric = val.get(monitor, val.get("val_losses/total"))
             save_checkpoint(str(Path(workdir) / "checkpoints"), state,
-                            step=state.step, metric=metric)
+                            step=state.step, metric=metric, mesh=mesh)
             if metric is not None and metric < best:
                 best = metric
-                logger.log(state.step,
-                           {f"{k}_at_best": v for k, v in val.items()})
+                if is_main:
+                    logger.log(state.step,
+                               {f"{k}_at_best": v for k, v in val.items()})
     finally:
-        logger.close()
+        if is_main:
+            logger.close()
     return {"best": best, "steps": state.step}
 
 
@@ -248,8 +275,8 @@ def train_traj(state: RAFTTrainState, train_loader: Iterable, workdir: str,
                num_pos_events: int = -1, gamma: Optional[float] = None,
                gamma_sample_k: Optional[int] = None, log_every: int = 100,
                ckpt_every: int = 1000, val_every: int = 0,
-               validate: Optional[Callable] = None, seed: int = 1
-               ) -> Dict[str, float]:
+               validate: Optional[Callable] = None, seed: int = 1,
+               mesh=None) -> Dict[str, float]:
     """RAFT-Spline training until `max_steps`; returns {'best', 'steps'}.
 
     `loss_cfg` selects the self-supervised step (focus loss, `gamma` and
@@ -262,9 +289,17 @@ def train_traj(state: RAFTTrainState, train_loader: Iterable, workdir: str,
     `val_every` steps and after the last; its val/masked_TEPE (else
     val/epe) is the checkpoint's metric for best-k retention.  Without
     `validate`, a checkpoint every `ckpt_every` steps and after the last.
+
+    With `mesh`, the loader is the rank's data shard and `validate` the
+    rank's share of the validation (its metrics the same on every rank,
+    as the CLI's run_traj_validation with `shard` and `reduce` gives
+    them); the module docstring says the rest.
     """
     kind = "supervised" if loss_cfg is None else "selfsup"
-    logger = ScalarLogger(workdir)
+    is_main = mesh is None or mesh.is_main
+    logger = ScalarLogger(workdir) if is_main else None
+    if mesh is not None:
+        replicate(mesh, state)
     dev = next(state.model.parameters()).device
     gen = torch.Generator().manual_seed(seed)
     ckpt_dir = str(Path(workdir) / "checkpoints")
@@ -275,38 +310,46 @@ def train_traj(state: RAFTTrainState, train_loader: Iterable, workdir: str,
         nonlocal best
         state.model.eval()
         val = validate(state.model)
-        logger.log(n_steps, val)
+        if is_main:
+            logger.log(n_steps, val)
         metric = val.get("val/masked_TEPE", val.get("val/epe"))
-        save_checkpoint(ckpt_dir, state, step=n_steps, metric=metric)
+        save_checkpoint(ckpt_dir, state, step=n_steps, metric=metric,
+                        mesh=mesh)
         if metric is not None and metric < best:
             best = metric
-            logger.log(n_steps, {f"{k}_at_best": v for k, v in val.items()})
+            if is_main:
+                logger.log(n_steps,
+                           {f"{k}_at_best": v for k, v in val.items()})
 
     try:
         while n_steps < max_steps:
             epoch_steps = n_steps
             for batch in train_loader:
-                dev_batch = to_device({k: batch[k] for k in _TRAJ_KEYS[kind]
-                                       if k in batch}, dev)
+                npos = batch.get("num_pos_events", num_pos_events)
+                batch = {k: batch[k] for k in _TRAJ_KEYS[kind] if k in batch}
+                if mesh is not None:
+                    batch = event_shard_batch(mesh, batch, npos)
+                dev_batch = to_device(batch, dev)
                 if loss_cfg is None:
-                    logs = raft_supervised_train_step(state, dev_batch)
+                    logs = raft_supervised_train_step(state, dev_batch,
+                                                      mesh=mesh)
                 else:
                     logs = raft_train_step(
-                        state, dev_batch, gen, loss_cfg,
-                        batch.get("num_pos_events", num_pos_events), gamma,
-                        gamma_sample_k)
+                        state, dev_batch, gen, loss_cfg, npos, gamma,
+                        gamma_sample_k, mesh=mesh)
                 n_steps += 1
-                if n_steps % log_every == 0:
+                if is_main and n_steps % log_every == 0:
                     logger.log(n_steps, {k: float(v) for k, v in logs.items()})
                 if validate is not None:
                     if n_steps % val_every == 0 or n_steps >= max_steps:
                         run_validation()
                 elif n_steps % ckpt_every == 0 or n_steps >= max_steps:
-                    save_checkpoint(ckpt_dir, state, step=n_steps)
+                    save_checkpoint(ckpt_dir, state, step=n_steps, mesh=mesh)
                 if n_steps >= max_steps:
                     break
             if n_steps == epoch_steps:
                 raise ValueError("the training loader yielded no batch")
     finally:
-        logger.close()
+        if is_main:
+            logger.close()
     return {"best": best, "steps": n_steps}

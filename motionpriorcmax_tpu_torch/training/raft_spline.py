@@ -17,6 +17,9 @@ The JAX steps are pure functions of an immutable state; here the steps
 update the model, optimizer and schedule of the state in place and return
 the logs.  Random draws (t_ref, the gamma subsample) come from an explicit
 torch.Generator, or from `times` / `sample_idx` when a caller passes them.
+Both train steps take a `mesh` (parallel.Mesh): the step of one rank, from
+its share of the global batch, that makes the single-device step of the
+global batch.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ from ..metrics.core import (ae_masked, ae_masked_multi, epe_masked,
 from ..models.raft_spline import RAFTSpline, RAFTSplineConfig
 from ..models.raft_spline.curves import (curve_flow_from_reference,
                                          cvx_upsample)
+from ..ops.gradients import batch_mean
 from ..ops.grids import tile_mask_positions
 from ..ops.padding import pad_to_multiple, requires_padding, unpad
+from ..parallel.mesh import sync_batch_norm
 
 
 @torch.no_grad()
@@ -259,12 +264,14 @@ def _refuse_learned(cfg: RAFTSplineConfig, step: str) -> None:
                          "model and cannot train LEARNED curves")
 
 
-def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor) -> None:
+def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor,
+                     mesh=None) -> None:
     """Backward (TF32 off) and, every accumulate_steps calls, one AdamW and
     schedule step on the running gradient mean (optax.MultiSteps).
 
     Parameters the loss does not reach get a zero gradient, so that AdamW
-    decays them as optax does.  After an update `p.grad` holds the gradient
+    decays them as optax does.  With a mesh, the gradients are averaged
+    over the world first.  After an update `p.grad` holds the gradient
     that was applied."""
     params = list(state.model.parameters())
     with no_tf32():
@@ -272,6 +279,8 @@ def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor) -> None:
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        mesh.average_gradients(params)
     state.step += 1
     k = state.tc.accumulate_steps
     if k > 1:
@@ -293,7 +302,8 @@ def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor) -> None:
 
 def curve_focus_loss(cfg: RAFTSplineConfig, loss_cfg: FocusLossConfig,
                      params_up: torch.Tensor, times: torch.Tensor,
-                     batch: Dict[str, torch.Tensor], num_pos_events: int):
+                     batch: Dict[str, torch.Tensor], num_pos_events: int,
+                     mesh=None):
     """Focus loss of one full-resolution curve-parameter grid: one
     trajectory per superpixel (the grid sampled at its centre pixels),
     evaluated at `times`, channels (x, y) flipped to the loss's (y, x)."""
@@ -308,7 +318,7 @@ def curve_focus_loss(cfg: RAFTSplineConfig, loss_cfg: FocusLossConfig,
         1, 0, 3, 2)                                          # [B, T, N, 2]
     return focus_loss(loss_cfg, traj, times, batch["events"],
                       num_pos_events=num_pos_events,
-                      cell_ends=batch.get("lut_cell_ends"))
+                      cell_ends=batch.get("lut_cell_ends"), mesh=mesh)
 
 
 def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
@@ -317,8 +327,8 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
                     gamma: Optional[float] = None,
                     gamma_sample_k: Optional[int] = None,
                     times: Optional[torch.Tensor] = None,
-                    sample_idx: Optional[Sequence[int]] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    sample_idx: Optional[Sequence[int]] = None,
+                    mesh=None) -> Dict[str, torch.Tensor]:
     """Self-supervised step: the focus loss on the predicted curves.
 
     gamma None scores the final iteration's upsampled curve (test-mode
@@ -333,6 +343,9 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
         'lut_cell_ends' and 'img', on the model's device.
       generator: draws t_ref (unless `times`) and the subsample (unless
         `sample_idx`, the K drawn iteration indices in [0, iters - 1)).
+        With a mesh it must draw the same on every rank.
+      mesh: a parallel.Mesh; `batch` is then the rank's share of the
+        global batch and `num_pos_events` the global capacity.
     Returns the detached logs; the state is updated in place.
     """
     model = state.model
@@ -345,11 +358,11 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
 
     def score(params_up):
         return curve_focus_loss(cfg, loss_cfg, params_up, times, batch,
-                                num_pos_events)
+                                num_pos_events, mesh)
 
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    with no_tf32():
+    with no_tf32(), sync_batch_norm(model, mesh):
         if gamma is None:
             _, params_up = model(batch["ev_repr"], batch.get("img"),
                                  test_mode=True)
@@ -381,14 +394,14 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
                                 device=device)
             loss = torch.sum(gamma ** expo * scale * losses)
             logs = {"train_losses/focus_final": losses[-1].detach()}
-    _apply_gradients(state, loss)
+    _apply_gradients(state, loss, mesh)
     logs["train_losses/total"] = loss.detach()
     return logs
 
 
 def raft_supervised_train_step(state: RAFTTrainState,
                                batch: Dict[str, torch.Tensor],
-                               gamma: float = 0.8
+                               gamma: float = 0.8, mesh=None
                                ) -> Dict[str, torch.Tensor]:
     """Supervised MultiFlow step: per iteration the masked L1 between the
     upsampled curve at the GT timestamps and the GT flow, iteration i
@@ -398,6 +411,10 @@ def raft_supervised_train_step(state: RAFTTrainState,
       batch: 'ev_repr' [B, nbins_total, H, W]; 'flow' [B, T, 2, H, W]
         (channel 0 = x); 'flow_timestamps' [B, T], one cadence for the
         batch (row 0 is used); optional 'flow_valid' [B, T, H, W] and 'img'.
+      mesh: a parallel.Mesh; `batch` is then the rank's share of the
+        global batch, and each iteration's (masked) mean is taken over the
+        global batch, sum(err * mask) / sum(mask) with both sums over the
+        data axis.
     Returns the detached logs; the state is updated in place.
     """
     model = state.model
@@ -410,7 +427,7 @@ def raft_supervised_train_step(state: RAFTTrainState,
              else valid.movedim(1, 0)[:, :, None].float())  # [T, B, 1, H, W]
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    with no_tf32():
+    with no_tf32(), sync_batch_norm(model, mesh):
         params_seq, mask_seq = model(batch["ev_repr"], batch.get("img"),
                                      return_sequences=True)
         losses = []
@@ -419,15 +436,17 @@ def raft_supervised_train_step(state: RAFTTrainState,
                                              cfg.curve_type)
             err = (pred - gt).abs()
             if vmask is None:
-                losses.append(err.mean())
-            else:
-                losses.append(torch.sum(err * vmask)
-                              / (2.0 * torch.clamp(vmask.sum(), min=1.0)))
+                losses.append(batch_mean(err, mesh))
+                continue
+            sums = torch.stack([torch.sum(err * vmask), vmask.sum()])
+            if mesh is not None:
+                sums = mesh.data_sum(sums)
+            losses.append(sums[0] / (2.0 * torch.clamp(sums[1], min=1.0)))
         losses = torch.stack(losses)
         n = losses.shape[0]
         expo = torch.arange(n - 1, -1, -1, dtype=losses.dtype,
                             device=losses.device)
         loss = torch.sum(gamma ** expo * losses)
-    _apply_gradients(state, loss)
+    _apply_gradients(state, loss, mesh)
     return {"train_losses/l1_final": losses[-1].detach(),
             "train_losses/total": loss.detach()}

@@ -10,7 +10,9 @@
 The JAX steps are pure functions of an immutable state; here `train_step`
 updates the model and optimizer of `state` in place and returns the logs.
 t_ref comes from an explicit torch.Generator (JAX draws it from
-jax.random), or from `times` when a caller passes them.
+jax.random), or from `times` when a caller passes them.  `train_step(...,
+mesh=)` is the step of one rank of a parallel.Mesh: it computes the
+single-device step of the global batch from the rank's share of it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops.basis import compute_trajectories, eval_basis
 from ..ops.flow_error import calculate_flow_error
 from ..ops.grids import (coeffs_grid_to_list, dense_flow_from_traj,
                          tile_mask_positions)
+from ..parallel.mesh import sync_batch_norm
 from .raft_spline import init_weights
 
 
@@ -154,7 +157,7 @@ def flow_from_coeffs(cfg: TrajectoryNetConfig, coeff_grid: torch.Tensor,
 
 
 def voxelize_batch_on_device(cfg: TrajectoryNetConfig,
-                             events: torch.Tensor) -> torch.Tensor:
+                             events: torch.Tensor, mesh=None) -> torch.Tensor:
     """[B, M, 6] (y, x, t in [0, 1], p, bin, valid) -> [B, num_bins, H, W]
     voxel grids on the events' device (JAX: voxelize_batch_on_device with
     sorted_cell_size=None): the exact f32 trilinear vote (one voxel-vote
@@ -162,33 +165,39 @@ def voxelize_batch_on_device(cfg: TrajectoryNetConfig,
     quantile clamp and the mean_std / max normalization.
 
     It votes the batch's capacity-truncated events, where the host path
-    votes every event of the window, as in the JAX package."""
+    votes every event of the window, as in the JAX package.  With a mesh,
+    `events` are this rank's event shard: its partial grids are summed
+    over the event axis before the clamp and the normalization."""
     h, w = cfg.image_shape
     with torch.no_grad():
         grids = ev_ops.voxel_grid_from_events(events, num_bins=cfg.num_bins,
                                               height=h, width=w)
+        if mesh is not None:
+            grids = mesh.event_sum(grids)
         grids = ev_ops.clamp_voxel_grid_quantile(grids, cfg.voxel_quantile)
         return ev_ops.normalize_voxel_grid(grids, cfg.voxel_norm_type)
 
 
 def _step(model: TrajectoryModel, batch: Dict[str, torch.Tensor],
           loss_cfg: FocusLossConfig, times: torch.Tensor,
-          num_pos_events: int):
+          num_pos_events: int, mesh=None):
     """voxel -> coefficients -> trajectories -> focus loss, in the model's
     current mode (train mode updates the BatchNorm statistics).
 
     A batch without 'voxel' is voxelized here from its events.  An unset
     `interp_band_per_bin` becomes True exactly for the linear basis
     (polynomial, num_basis 1), whose displacement grows linearly from the
-    t = 0 anchor, as in the JAX step."""
+    t = 0 anchor, as in the JAX step.  With a mesh, the batch is the
+    rank's share and the BatchNorm statistics and the loss are those of
+    the global batch (focus_loss's `mesh`)."""
     cfg = model.cfg
     if loss_cfg.interp_band_per_bin is None:
         loss_cfg = dataclasses.replace(loss_cfg, interp_band_per_bin=(
             cfg.basis_type == "polynomial" and cfg.num_basis == 1))
     voxel = batch.get("voxel")
     if voxel is None:
-        voxel = voxelize_batch_on_device(cfg, batch["events"])
-    with no_tf32():
+        voxel = voxelize_batch_on_device(cfg, batch["events"], mesh)
+    with no_tf32(), sync_batch_norm(model, mesh):
         coeff_grid = model(voxel)
         traj = calculate_trajectories(cfg, coeff_grid, times,
                                       loss_cfg.is_needing_offsets,
@@ -196,7 +205,7 @@ def _step(model: TrajectoryModel, batch: Dict[str, torch.Tensor],
         loss, log_data, misc = focus_loss(
             loss_cfg, traj, times, batch["events"],
             num_pos_events=num_pos_events,
-            cell_ends=batch.get("lut_cell_ends"))
+            cell_ends=batch.get("lut_cell_ends"), mesh=mesh)
     misc["coeff_grid"] = coeff_grid
     return loss, log_data, misc
 
@@ -205,12 +214,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator],
                cfg: TrajectoryNetConfig, loss_cfg: FocusLossConfig,
                num_pos_events: int = -1,
-               times: Optional[torch.Tensor] = None
+               times: Optional[torch.Tensor] = None, mesh=None
                ) -> Dict[str, torch.Tensor]:
     """One AdamW step on `state` in place; returns the detached logs.
 
     `times` overrides the reconstruction times drawn from `generator`
-    (tests pass the JAX side's)."""
+    (tests pass the JAX side's).  With a mesh (parallel.Mesh), `batch` is
+    this rank's share of the global batch (parallel.shard_batch or
+    event_shard_batch), `num_pos_events` the global capacity, and
+    `generator` must draw the same on every rank: the gradients are
+    averaged over the world before the optimizer step, which then makes
+    the single-device step of the global batch on every rank."""
     model = state.model
     if model.cfg != cfg:
         raise ValueError("state.model was built for another config")
@@ -220,9 +234,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, log_data, _ = _step(model, batch, loss_cfg, times.to(device),
-                              num_pos_events)
+                              num_pos_events, mesh)
     with no_tf32():
         loss.backward()
+    if mesh is not None:
+        mesh.average_gradients(model.parameters())
     state.optimizer.step()
     state.step += 1
     logs = {"train_losses/total": loss.detach()}
