@@ -228,6 +228,21 @@ Phases, one or more lines each; any failure exits non-zero:
      1.5), and train_flow on the (2, 1) mesh writing its scalars and
      checkpoint from rank 0 alone; a rank that fails or outlasts its
      timeout fails the script
+  the benchmarks (motionpriorcmax_tpu_torch/benchmarks/, each entry point
+  called as `main(argv)` at its own sizes and timed calls; every value
+  finite and positive, the key sets the JAX modules' less the TPU-only
+  ones):
+ 47. components: the KNNs, the vote and its gradient, the device voxel
+     grid, the focus loss (exact, softmax, cell-sorted) at 480x640, b=2,
+     2^19 events per sample, K=32; then ops/scatter.py's scatter_add_1d
+     on the card: the same bits in two calls, against a float64 sum
+ 48. raft: Tab2L5 at 384x512, B=1, f32 with no flags (forward, validation
+     step, self-supervised train step on 2^19 cell-sorted events), then
+     --supervised --compute-dtype bfloat16 --corr-dtype bfloat16
+ 49. scaling: the sharded flow step in a world of one process over NCCL
+ 50. scaling_hosts: train_flow in worlds of 1, 2 and 4 processes sharing
+     the card (NCCL for one, gloo for more), every rank's best agreeing
+     and the parity verdict true
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -2164,6 +2179,19 @@ def phase_bwd_kernel(torch):
     return err32, err16
 
 
+def bwd_bound(torch, corr, cx, cy):
+    """(bytes, ms) the lookup's backward must take on one level: the
+    in-range window values, the cotangent slab and the coordinates read
+    once; d corr (the whole maps, in the volume's dtype), d cx and d cy
+    written; 4 weighted taps and 2 differences per window element."""
+    n = corr.numel() // (corr.shape[-2] * corr.shape[-1])
+    nbytes = (needed_bytes(torch, corr, cx, cy)
+              + corr.numel() * corr.element_size() + n * 8)
+    flops = n * K * 18
+    return nbytes, max(nbytes / H100_BYTES_PER_S,
+                       flops / H100_F32_FLOPS) * 1e3
+
+
 def phase_bwd_timing(torch):
     """Phase 20: per level and per refinement iteration (4 launches), CUDA
     events, L2 flushed: the backward kernel, its bytes bound, its plain
@@ -2210,11 +2238,7 @@ def phase_bwd_timing(torch):
         l_ms = time_ms(torch, lambda: torch.autograd.grad(
             out, (img, grid), gout, retain_graph=True), flush, reps=5,
             warmup=1)
-        # Bytes: the in-range window values, the level's cotangent slab and
-        # coordinates read once; d corr (the whole maps), d cx, d cy written.
-        nbytes = (needed_bytes(torch, corr, cx, cy) + n * h2 * w2 * 4 + n * 8)
-        flops = n * K * 18              # 4 weighted taps + 2 differences
-        bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+        nbytes, bound = bwd_bound(torch, corr, cx, cy)
         print(f"[bwd-timing] level {lvl + 1} N={n} map {h2}x{w2} f32: "
               f"kernel={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
               f"({nbytes / 1e6:.1f} MB, bytes-bound) plain={p_ms * 1e3:.1f} us"
@@ -3964,13 +3988,18 @@ def phase_bf16_bwd(torch, levels, c_total, tag):
     ms = time_ms(torch, lambda: iteration(levels), flush, card=True)
     levels32 = [(c.float(), cx, cy, off) for c, cx, cy, off in levels]
     ms32 = time_ms(torch, lambda: iteration(levels32), flush, card=True)
+    bound = sum(bwd_bound(torch, c, cx, cy)[1] for c, cx, cy, _ in levels)
+    bound32 = sum(bwd_bound(torch, c, cx, cy)[1]
+                  for c, cx, cy, _ in levels32)
     del flush, levels32, g
     torch.cuda.empty_cache()
     print(f"[{tag}] one refinement iteration's backward (4 launches) on the "
-          f"bf16 pyramid: card {ms * 1e3:.1f} us, on f32 volumes "
-          f"{ms32 * 1e3:.1f} us")
+          f"bf16 pyramid: card {ms * 1e3:.1f} us (bytes bound "
+          f"{bound * 1e3:.1f} us), on f32 volumes {ms32 * 1e3:.1f} us "
+          f"(bound {bound32 * 1e3:.1f} us)")
     return {"bf16_max_abs_err": err16, "bf16_d_coords_max_abs_err": err32,
-            "bf16_card_ms": ms, "bf16_f32_volumes_card_ms": ms32}
+            "bf16_card_ms": ms, "bf16_f32_volumes_card_ms": ms32,
+            "bf16_bound_ms": bound, "bf16_f32_volumes_bound_ms": bound32}
 
 
 def phase_bf16_card_vs_cpu(torch):
@@ -4397,6 +4426,119 @@ def phase_parallel(torch, scfg, sloss, sorted_batch, unsorted_batch,
     return launches
 
 
+# -- the benchmarks: the JAX package's benchmarks/ in the port --------------
+
+# Each entry point's metric keys (the JAX modules' less the three that time
+# the TPU's scatter layouts, see benchmarks/components.py).
+BENCH_COMPONENT_KEYS = (
+    "knn_exact_b2x15_19200x19200_k32_ms", "knn_approx_ms", "knn_grid_ms",
+    "iwe_scatter_direct_events_per_s", "iwe_scatter_fwd_bwd_events_per_s",
+    "voxelize_events_per_s", "focus_loss_exact_fwd_events_per_s",
+    "focus_loss_exact_fwd_bwd_events_per_s",
+    "focus_loss_softmax_fwd_bwd_events_per_s",
+    "focus_loss_sorted_fwd_bwd_events_per_s")
+BENCH_RAFT_RUNS = (
+    ([], ("raft_spline_fwd_12it_evimo2_ms", "raft_spline_valstep_ms",
+          "raft_spline_selfsup_trainstep_ms")),
+    (["--supervised", "--compute-dtype", "bfloat16", "--corr-dtype",
+      "bfloat16"], ("raft_spline_fwd_12it_evimo2_ms",
+                    "raft_spline_valstep_ms",
+                    "raft_spline_supervised_trainstep_ms")))
+BENCH_HOST_WORLDS = [1, 2, 4]
+# scatter_add_1d on the card: 2^22 values into 2^16 slots (runs of ~64),
+# the run sums against float64 sums of the same f32 values.
+SCATTER_CASE = (1 << 16, 1 << 22)
+TOL_SCATTER = 1e-5                 # relative to the largest |f64 sum|
+
+
+def bench_values(label, records):
+    """Fail unless every number of the records is finite and positive."""
+    for rec in records:
+        for k, v in rec.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool) \
+                    and not (np.isfinite(v) and v > 0):
+                fail(f"[{label}] {rec.get('metric', rec)}: {k} = {v}")
+
+
+def phase_scatter(torch):
+    """Phase 47's ops/scatter.py check on the card."""
+    from motionpriorcmax_tpu_torch.ops import scatter_add_1d
+
+    n, m = SCATTER_CASE
+    rng = np.random.default_rng(47)
+    idx = rng.integers(-8, n + 8, m)         # a few out of range, dropped
+    vals = rng.normal(size=m).astype(np.float32)
+    keep = (idx >= 0) & (idx < n)
+    want = np.bincount(idx[keep], vals[keep].astype(np.float64), n)
+    ti = torch.from_numpy(idx).cuda()
+    tv = torch.from_numpy(vals).cuda()
+    a, b = scatter_add_1d(n, ti, tv), scatter_add_1d(n, ti, tv)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail("[scatter] scatter_add_1d gave other bits in a second call")
+    err = float(np.abs(a.cpu().numpy() - want).max()
+                / max(1.0, np.abs(want).max()))
+    if not err <= TOL_SCATTER:
+        fail(f"[scatter] scatter_add_1d off its float64 sums by {err:.2e}")
+    print(f"[scatter] scatter_add_1d on the card: {m} values into {n} "
+          f"slots, the same bits in two calls, {err:.2e} of the largest "
+          f"float64 sum")
+
+
+def phase_benchmarks(torch, smi_line):
+    """Phases 47-50: each benchmarks/ entry point through its main(argv) at
+    its own sizes.  Returns {phase: seconds}."""
+    from motionpriorcmax_tpu_torch.benchmarks import (components, raft,
+                                                      scaling, scaling_hosts)
+
+    seconds = {}
+    t0 = time.perf_counter()
+    results = components.main([])
+    if tuple(results) != BENCH_COMPONENT_KEYS:
+        fail(f"[bench-components] keys {list(results)}")
+    bench_values("bench-components", [results])
+    phase_scatter(torch)
+    seconds["components"] = time.perf_counter() - t0
+    print(f"[bench-components] {json.dumps(results)}; "
+          f"{seconds['components']:.1f} s; card {smi_line}")
+    torch.cuda.empty_cache()
+
+    for argv, keys in BENCH_RAFT_RUNS:
+        t0 = time.perf_counter()
+        records = raft.main(argv)
+        if tuple(r["metric"] for r in records) != keys:
+            fail(f"[bench-raft] {argv}: records {records}")
+        bench_values("bench-raft", records)
+        tag = " ".join(argv) or "(no flags)"
+        seconds[f"raft {tag}"] = time.perf_counter() - t0
+        print(f"[bench-raft] {tag}: {json.dumps(records)}; "
+              f"{seconds[f'raft {tag}']:.1f} s; card {smi_line}")
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    records = scaling.main([])
+    if [r.get("devices") for r in records] != [torch.cuda.device_count()] \
+            or records[0]["metric"] != "scaling_events_per_s" \
+            or records[0]["efficiency"] != 1.0:
+        fail(f"[bench-scaling] records {records}")
+    bench_values("bench-scaling", records)
+    seconds["scaling"] = time.perf_counter() - t0
+    print(f"[bench-scaling] a world of one over NCCL: {json.dumps(records)}; "
+          f"{seconds['scaling']:.1f} s; card {smi_line}")
+
+    t0 = time.perf_counter()
+    out = scaling_hosts.main([])
+    if [w["hosts"] for w in out["worlds"]] != BENCH_HOST_WORLDS \
+            or out["parity_vs_single_process"] is not True:
+        fail(f"[bench-scaling-hosts] {out}")
+    bench_values("bench-scaling-hosts", out["worlds"])
+    seconds["scaling_hosts"] = time.perf_counter() - t0
+    print(f"[bench-scaling-hosts] ranks sharing the card: "
+          f"{json.dumps(out)}; {seconds['scaling_hosts']:.1f} s; "
+          f"card {smi_line}")
+    return seconds
+
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -4710,6 +4852,12 @@ def main() -> int:
                                   unsorted_train, selfsup, smi_line)
     del train_batch, unsorted_train, selfsup
     print(f"[done] multi-process phases {time.perf_counter() - t_par:.1f} s")
+
+    # The benchmarks (phases 47-50)
+    torch.cuda.empty_cache()
+    t_bench = time.perf_counter()
+    phase_benchmarks(torch, smi_line)
+    print(f"[done] benchmark phases {time.perf_counter() - t_bench:.1f} s")
     # Row 1 in the bf16 requests (phase 40): launches per request (the warm-up
     # included) and the kernel on their bf16 pyramid.
     kernels[0]["bf16_compute"] = {"request_launches": bf16_launches / 4,

@@ -162,6 +162,7 @@ def cmd_flow_train(args) -> int:
                           batch_size=dc["batch_size"] // (mesh.data if mesh
                                                           else 1),
                           capacity=capacity, shuffle=shuffle, shard=shard,
+                          equal_batches=split == "train",
                           num_workers=dc.get("num_workers", 8),
                           polarity_aware=pab, pos_capacity=pos_capacity,
                           capacity_buckets=args.event_capacity_buckets,

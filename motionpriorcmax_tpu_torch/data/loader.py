@@ -47,7 +47,7 @@ class DataLoader:
                  lut_cell_sort_params: Optional[tuple] = None,
                  pin_memory: bool = False,
                  capacity_buckets: Optional[Sequence[int]] = None,
-                 shard: Optional[tuple] = None):
+                 shard: Optional[tuple] = None, equal_batches: bool = True):
         """`collate_fn(samples) -> batch` replaces the fixed-capacity
         collate and then runs in the producer thread; `pin_memory` stacks
         the default collate's arrays into pinned host memory (for a card:
@@ -64,6 +64,7 @@ class DataLoader:
         collectives needs."""
         self.dataset = dataset
         self.shard = shard
+        self.equal_batches = equal_batches
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
@@ -116,19 +117,23 @@ class DataLoader:
         return stack_samples([prepare_sample(s, **kw) for s in samples],
                              self._alloc)
 
+    def _shard_order(self, order: np.ndarray) -> np.ndarray:
+        if self.shard is None:
+            return order
+        rank, world = self.shard
+        if self.equal_batches:
+            order = order[:len(order) - len(order) % world]
+        return order[rank::world]
+
     def __len__(self) -> int:
-        n = len(self.dataset)
-        if self.shard is not None:
-            n //= self.shard[1]
+        n = len(self._shard_order(np.arange(len(self.dataset))))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
-        if self.shard is not None:
-            rank, world = self.shard
-            order = order[:len(order) - len(order) % world][rank::world]
+        order = self._shard_order(order)
         self._epoch += 1
         batches = [order[i:i + self.batch_size]
                    for i in range(0, len(order), self.batch_size)]

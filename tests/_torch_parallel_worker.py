@@ -12,7 +12,12 @@
           (2, 1) and (1, 2), each rank with its own workdir;
           MetricBank.reduce_across_processes
   cli     (2 ranks) `flow-train --mesh 2,1` on <dir>/cfg.yaml, each rank
-          with its own workdir <dir>/rank<r>
+          with its own workdir <dir>/rank<r>, counting the validation
+          samples each rank's metric bank holds before the reduction;
+          `traj-train --mesh 2,1` on the EVIMO2 tree <dir>/evimo2 at
+          TRAJ_HW (workdir <dir>/traj_rank<r>); then, the process group
+          gone, rank 1 runs the same traj-train in one process, --mesh
+          1,1 (<dir>/traj_single)
 
 Inputs come from <dir>/inputs.pt (written by the test); each rank writes
 its results to <dir>/out<r>.pt.  No JAX here: the test process holds the
@@ -23,6 +28,8 @@ import os
 import sys
 
 import torch
+
+TRAJ_HW = (64, 128)                # the cli world's traj-train geometry
 
 
 def flow_state(inp):
@@ -140,6 +147,69 @@ def traj_loop_case(mesh, inp, tag, out_dir, out):
                           for f in files)}
 
 
+def traj_train_argv(out_dir, workdir):
+    """traj-train on <out_dir>/evimo2, one step of the global batch of 2
+    and a validation pass, cut to one iteration and Bezier degree 2."""
+    return ["traj-train", "--device", "cpu",
+            "--config-dir", "config/trajectory_inference",
+            "--workdir", os.path.join(out_dir, workdir), "--max-steps", "1",
+            "--log-every", "1", "--event-capacity", "4096",
+            "--val-every", "1", "--val-batch-size", "1",
+            "experiment=raft-spline_evimo2-300ms_ours-selfsup",
+            "checkpoint=/unused",
+            f"dataset.path={os.path.join(out_dir, 'evimo2')}",
+            "training.batch_size=2", "model.num_iter.train=1",
+            "model.num_iter.test=1", "model.bezier_degree=2",
+            "loss.lut_superpixel_size=16", "loss.num_knn=4"]
+
+
+def cli_world(rank, size, port, out_dir):
+    """The cli world's runs; what each rank returns and, per run, the
+    metric counts of the rank's validation shard, as its MetricBank holds
+    them before reduce_across_processes sums them over the ranks."""
+    from motionpriorcmax_tpu_torch.cli.main import main as cli
+    from motionpriorcmax_tpu_torch.data.evimo2 import Evimo2Datasubset
+    from motionpriorcmax_tpu_torch.metrics import MetricBank
+
+    # The EVIMO2 reader's 384 x 512 cut to TRAJ_HW: the model and the
+    # loss take the data's resolution, so both runs are cut alike.
+    init = Evimo2Datasubset.__init__
+
+    def small_init(self, *args, **kw):
+        init(self, *args, **kw)
+        self.resize_hw = TRAJ_HW
+
+    Evimo2Datasubset.__init__ = small_init
+    counts = []
+    reduce = MetricBank.reduce_across_processes
+
+    def counting(bank):
+        counts.append({k: float(c) for k, (_, c) in bank.state.items()})
+        return reduce(bank)
+
+    MetricBank.reduce_across_processes = counting
+    group = ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+             str(size), "--process-id", str(rank)]
+    out = {"rc": cli([
+        "flow-train", "--config", os.path.join(out_dir, "cfg.yaml"),
+        "--workdir", os.path.join(out_dir, f"rank{rank}"),
+        "--event-capacity", "4096", "--log-every", "1", "--device",
+        "cpu", "--mesh", "2,1", *group])}
+    out["flow_val_counts"], counts[:] = list(counts), []
+    # Each command ends its process group; the next one meets at another
+    # port (rank 0 may still hold the first group's store when rank 1
+    # starts it).
+    traj_port = torch.load(os.path.join(out_dir, "inputs.pt"))["traj_port"]
+    group[1] = f"127.0.0.1:{traj_port}"
+    out["traj_rc"] = cli(traj_train_argv(out_dir, f"traj_rank{rank}")
+                         + ["--mesh", "2,1", *group])
+    out["traj_val_counts"] = list(counts)
+    if rank == 1:
+        out["traj_single_rc"] = cli(traj_train_argv(out_dir, "traj_single")
+                                    + ["--mesh", "1,1"])
+    return out
+
+
 def main():
     world, rank, size, port, out_dir = sys.argv[1:6]
     rank, size = int(rank), int(size)
@@ -152,14 +222,7 @@ def main():
     # TensorBoard's import (TensorFlow's) takes longer than the runs.
     sys.modules["torch.utils.tensorboard"] = None
     if world == "cli":
-        from motionpriorcmax_tpu_torch.cli.main import main as cli
-
-        out["rc"] = cli([
-            "flow-train", "--config", os.path.join(out_dir, "cfg.yaml"),
-            "--workdir", os.path.join(out_dir, f"rank{rank}"),
-            "--event-capacity", "4096", "--log-every", "1", "--device",
-            "cpu", "--mesh", "2,1", "--coordinator", f"127.0.0.1:{port}",
-            "--num-processes", str(size), "--process-id", str(rank)])
+        out.update(cli_world(rank, size, port, out_dir))
         torch.save(out, os.path.join(out_dir, f"out{rank}.pt"))
         return
 

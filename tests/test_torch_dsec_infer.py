@@ -38,6 +38,7 @@ from motionpriorcmax_tpu_torch.training.checkpoint import (
 from motionpriorcmax_tpu_torch.utils.flow_io import load_flow_png
 from tests.test_data_dsec import make_synthetic_dsec_sequence
 from tests.test_torch_flow_train import make_val_sequence
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 NB = 15
 WIDTHS = (4, 8, 8, 8, 8)

@@ -35,6 +35,7 @@ from motionpriorcmax_tpu_torch.training.checkpoint import (
     flax_unet_to_torch, restore_checkpoint, save_checkpoint)
 from motionpriorcmax_tpu_torch.training.loop import to_device, train_flow
 from tests.test_data_dsec import make_synthetic_dsec_sequence
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 H, W, NB = 32, 48, 15
 WIDTHS = (8, 16, 16, 32, 32)
@@ -297,33 +298,66 @@ def test_checkpoint_best_k_retention(tmp_path):
         assert torch.equal(a, b)
 
 
-def make_val_sequence(root, name="zurich_city_05_b"):
-    """A val-phase DSEC sequence with GT flow PNGs (as in
-    tests/test_flow_train_cli.py)."""
-    rng = np.random.default_rng(7)
+def sensor_sequence(root, name, hw=(480, 640)):
+    """make_synthetic_dsec_sequence on a sensor of `hw` (its 480 x 640
+    events moved onto the smaller sensor, an identity rectify map of
+    `hw`)."""
+    import h5py
+
     seq = make_synthetic_dsec_sequence(root, name=name)
-    flow_dir = seq / "flow/forward"
-    flow_dir.mkdir(parents=True)
-    (seq / "flow/forward_timestamps.txt").write_text(
-        "# from_timestamp_us, to_timestamp_us\n100000,200000\n200000,300000\n")
-    for idx in (2, 4):
-        flow = rng.normal(size=(2, 480, 640)).astype(np.float32) * 3
-        save_flow_png(flow_dir / f"{idx:06d}.png", flow,
-                      rng.uniform(size=(480, 640)) < 0.7)
+    h, w = hw
+    if hw != (480, 640):
+        with h5py.File(seq / "events/left/events.h5", "r+") as f:
+            for key, size, full in (("x", w, 640), ("y", h, 480)):
+                v = f[f"events/{key}"][()].astype(np.int64) * size // full
+                f[f"events/{key}"][...] = v.astype(f[f"events/{key}"].dtype)
+        gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+        with h5py.File(seq / "events/left/rectify_map.h5", "w") as f:
+            f.create_dataset("rectify_map", data=np.stack(
+                [gx, gy], axis=-1).astype("float32"))
     return seq
 
 
-def test_flow_train_cli_two_steps(tmp_path):
-    # The CLI on a synthetic DSEC tree at 480 x 640, a narrow UNet and a
-    # coarse LUT: 2 epochs of 1 step, val EPE, best-k checkpoints, resume.
-    from motionpriorcmax_tpu_torch.cli.main import main
+def make_val_sequence(root, name="zurich_city_05_b", n_windows=2,
+                      hw=(480, 640)):
+    """A val-phase DSEC sequence with GT flow PNGs (as in
+    tests/test_flow_train_cli.py): `n_windows` (at most 3) windows of 100
+    ms from 100 ms on, on a sensor of `hw`."""
+    rng = np.random.default_rng(7)
+    seq = sensor_sequence(root, name, hw)
+    flow_dir = seq / "flow/forward"
+    flow_dir.mkdir(parents=True)
+    (seq / "flow/forward_timestamps.txt").write_text(
+        "# from_timestamp_us, to_timestamp_us\n" + "".join(
+            f"{t}00000,{t + 1}00000\n" for t in range(1, n_windows + 1)))
+    for idx in range(2, 2 * n_windows + 1, 2):
+        flow = rng.normal(size=(2,) + hw).astype(np.float32) * 3
+        save_flow_png(flow_dir / f"{idx:06d}.png", flow,
+                      rng.uniform(size=hw) < 0.7)
+    return seq
 
+
+# The CLI test's sensor: the DSEC reader's 480 x 640 cut (its HEIGHT and
+# WIDTH patched), a multiple of the UNet's 16.
+CLI_HW = (64, 96)
+
+
+def test_flow_train_cli_two_steps(tmp_path, monkeypatch):
+    # The CLI on a synthetic DSEC tree of a CLI_HW sensor, a narrow UNet
+    # and a coarse LUT: 2 epochs of 1 step, val EPE, best-k checkpoints,
+    # resume.
+    from motionpriorcmax_tpu_torch.cli.main import main
+    from motionpriorcmax_tpu_torch.data import dsec
+
+    h, w = CLI_HW
+    monkeypatch.setattr(dsec, "HEIGHT", h)
+    monkeypatch.setattr(dsec, "WIDTH", w)
     data = tmp_path / "dsec"
     data.mkdir()
-    make_synthetic_dsec_sequence(data, name="zurich_city_04_d")
-    make_val_sequence(data)
+    sensor_sequence(data, "zurich_city_04_d", CLI_HW)
+    make_val_sequence(data, hw=CLI_HW)
     config = {
-        "common": {"height": 480, "width": 640, "num_bins": 3,
+        "common": {"height": h, "width": w, "num_bins": 3,
                    "polarity_aware_batching": True, "patch_size": 16},
         "model": {"lr": 1e-4, "model_type": "default", "num_basis": 1,
                   "basis_type": "polynomial", "unet_widths": [4, 8, 8, 8, 8]},

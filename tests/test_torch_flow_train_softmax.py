@@ -34,6 +34,7 @@ from tests.test_data_dsec import make_synthetic_dsec_sequence
 from tests.test_torch_flow_train import (H, LOSS_KW, NB, W, WIDTHS, configs,
                                          jax_state, make_batch,
                                          make_val_sequence, port_state)
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 SOFTMAX_KW = dict(LOSS_KW, knn_method="softmax")
 

@@ -29,6 +29,7 @@ from motionpriorcmax_tpu_torch.utils import visualization as tvis
 from motionpriorcmax_tpu_torch.utils.png16 import read_png_rgb, write_png8_rgb
 from tests.test_torch_flow_train import (LOSS_KW, configs, jstate,  # noqa: F401
                                          make_batch, port_state)
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 PANEL = ("unwarped_iwe", "pred_iwe", "pred_flow", "gt_flow", "gt_iwe")
 

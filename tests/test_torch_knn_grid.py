@@ -25,6 +25,7 @@ from motionpriorcmax_tpu_torch.losses import FocusLossConfig, focus_loss
 from motionpriorcmax_tpu_torch.losses.focus import softmax_interp_l1
 from motionpriorcmax_tpu_torch.ops import knn as tknn
 from tests.test_torch_focus_loss import H, NB, W, make_batch, make_trajectories
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 GH, GW, CELL = 12, 16, 4.0
 

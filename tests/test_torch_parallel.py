@@ -19,8 +19,11 @@ the port's sharded steps while this process computes the JAX side:
     steps, at tests/test_raft_sharded.py's geometry and tolerances;
   * train_traj on two processes at (2, 1) and (1, 2), validating every
     step, against train_traj in one process;
-  * MetricBank.reduce_across_processes, make_mesh's refusals, and
-    `flow-train --mesh 2,1` on two processes over a synthetic DSEC tree.
+  * MetricBank.reduce_across_processes, make_mesh's refusals,
+    `flow-train --mesh 2,1` on two processes over a synthetic DSEC tree
+    whose val split is odd (every sample validated), and `traj-train
+    --mesh 2,1` on two processes against `--mesh 1,1` in one, over a
+    synthetic EVIMO2 tree.
 
 Every world has a timeout of WORLD_TIMEOUT_S; a rank that fails or hangs
 fails every test that reads its world.
@@ -28,7 +31,9 @@ fails every test that reads its world.
 
 import dataclasses
 import functools
+import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -66,13 +71,14 @@ from motionpriorcmax_tpu_torch.training.checkpoint import (
 from tests import test_event_parallel as tep
 from tests.test_data_dsec import make_synthetic_dsec_sequence
 from tests.test_raft_sharded import make_raft_batch
-from tests.test_raft_training import tiny_cfg
+from tests.test_raft_training import make_synthetic_evimo2, tiny_cfg
 from tests.test_torch_flow_train import (H, LOSS_KW, NB, W, WIDTHS, configs,
                                          jax_state, make_events,
                                          make_val_sequence)
 from tests.test_torch_raft_spline import SMALL
 from tests.test_torch_raft_train import supervised_batch
 from tests.test_torch_raft_train import variables as raft_variables
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 WORKER = Path(__file__).parent / "_torch_parallel_worker.py"
 WORLD_TIMEOUT_S = 120
@@ -82,6 +88,7 @@ RAFT_LOSS_KW = dict(image_shape=RAFT_HW, num_bins=5, num_knn=4,
                     smooth_weight=0.01, polarity_aware_batching=False,
                     knn_block_size=64)
 WORLDS = {"events": 4, "steps": 2, "cli": 2}
+VAL_WINDOWS = 3                    # the cli tree's val split: odd
 EVENT_CASES = [(pol, srt) for pol in (False, True) for srt in (False, True)]
 FLOW_CASES = ("sorted_host_voxel", "unsorted_step_voxel")
 
@@ -227,10 +234,14 @@ def traj_loop_inputs():
 
 
 def write_cli_tree(out_dir: Path):
+    """The cli world's trees: DSEC with an odd val split (VAL_WINDOWS) and
+    EVIMO2 with imo/train and imo/eval, each of two samples."""
     data = out_dir / "dsec"
     data.mkdir()
     make_synthetic_dsec_sequence(data, name="zurich_city_04_d")
-    make_val_sequence(data)
+    make_val_sequence(data, n_windows=VAL_WINDOWS)
+    evimo2 = make_synthetic_evimo2(out_dir / "evimo2", n_flows=2)
+    shutil.copytree(evimo2 / "imo/eval/seq_a", evimo2 / "imo/train/seq_t")
     config = {
         "common": {"height": 480, "width": 640, "num_bins": 3,
                    "polarity_aware_batching": True, "patch_size": 16},
@@ -293,6 +304,7 @@ def results(tmp_path_factory, raft_variables):
     dirs = {w: tmp_path_factory.mktemp(w) for w in WORLDS}
     refs = {}
     write_cli_tree(dirs["cli"])
+    torch.save({"traj_port": _free_port()}, dirs["cli"] / "inputs.pt")
     flow, refs["flow"] = flow_inputs()
     raft, refs["raft"] = raft_inputs(raft_variables)
     events, refs["events"] = event_inputs()
@@ -387,6 +399,49 @@ def test_flow_train_cli_two_processes(results):
             for line in o["stdout"].splitlines() if "best=" in line]
     assert len(best) == 2 and best[0] == best[1]
     assert np.isfinite(float(best[0]))
+    # The odd val split: the ranks' shards (2 and 1 samples, per-rank
+    # batch 1) together validate every sample, and the rank with fewer
+    # batches does not hang the other.
+    counts = [o["flow_val_counts"] for o in outs]
+    assert [len(c) for c in counts] == [1, 1]
+    per_rank = [c[0]["val_losses/EPE"] for c in counts]
+    assert sorted(per_rank) == [1.0, 2.0]
+    assert sum(per_rank) == VAL_WINDOWS
+
+
+def test_traj_train_cli_two_processes_match_one(results):
+    """`traj-train --mesh 2,1` on two ranks against the same command in one
+    process (--mesh 1,1): the logged train loss and the validation metrics
+    with test_train_traj_two_processes_match_one's rtol 1e-5; each rank
+    validates its share of the eval split; rank 1 writes nothing."""
+    outs = world(results, "cli")
+    cli_dir = results[0]["cli_dir"]
+    assert [o["traj_rc"] for o in outs] == [0, 0]
+    assert outs[1]["traj_single_rc"] == 0
+
+    def scalars(workdir):
+        recs = [json.loads(line) for line in
+                (cli_dir / workdir / "scalars.jsonl").read_text()
+                .splitlines()]
+        train = [r for r in recs if "train_losses/total" in r]
+        val = [r for r in recs if "val/masked_TEPE" in r]
+        assert len(train) == 1 and len(val) == 1
+        return train[0], val[0]
+
+    (train, val), (train1, val1) = scalars("traj_rank0"), \
+        scalars("traj_single")
+    assert np.isfinite(train["train_losses/total"])
+    np.testing.assert_allclose(train["train_losses/total"],
+                               train1["train_losses/total"], rtol=1e-5)
+    assert set(val) == set(val1)
+    for k in val1:
+        np.testing.assert_allclose(val[k], val1[k], rtol=1e-5, err_msg=k)
+    assert (cli_dir / "traj_rank0/checkpoints/step_1.pt").is_file()
+    rank1 = cli_dir / "traj_rank1"
+    assert not rank1.exists() or not any(rank1.rglob("*"))
+    counts = [o["traj_val_counts"] for o in outs]
+    assert [len(c) for c in counts] == [1, 1]
+    assert [c[0]["val/masked_TEPE"] for c in counts] == [1.0, 1.0]
 
 
 @pytest.fixture(scope="module")
@@ -462,7 +517,9 @@ def test_parse_mesh_matches_jax(value):
 def test_loader_shard_order_matches_jax(n):
     """Every rank shuffles the shared order and strides it: the ranks'
     batches are disjoint and, when the world divides the dataset, JAX's;
-    the remainder is cut so that every rank reads as many batches."""
+    a training loader cuts the remainder so that every rank reads as many
+    batches, a validation loader (equal_batches=False) keeps it, as JAX's
+    loader does."""
     class Data:
         def __len__(self):
             return n
@@ -488,3 +545,19 @@ def test_loader_shard_order_matches_jax(n):
     else:
         for o, t in zip(ours, theirs):
             assert o == t[:len(o)]
+    # A validation loader keeps the remainder: JAX's batches exactly, every
+    # sample once, and a length that counts them (per-rank batch 1 here,
+    # so the ranks may read different numbers of batches).
+    for bs in (1, 2):
+        loaders = [DataLoader(Data(), bs, 0, shuffle=False, seed=3,
+                              shard=(r, world_size), collate_fn=collate,
+                              equal_batches=False)
+                   for r in range(world_size)]
+        val = [[b["i"].tolist() for b in ld] for ld in loaders]
+        assert val == [[b["i"].tolist() for b in JaxLoader(
+            Data(), bs, 0, shuffle=False, seed=3, shard=(r, world_size),
+            collate_fn=collate)] for r in range(world_size)]
+        assert [len(ld) for ld in loaders] == [len(v) for v in val]
+        if bs == 1:
+            assert sorted(i for rank in val for b in rank
+                          for i in b) == list(range(n))

@@ -49,6 +49,7 @@ from tests.test_torch_raft_train import (LOSS_KW, FocusLossConfig,
                                          JaxFocusCfg, jax_state, jax_times,
                                          port_state, selfsup_batch)
 from tests.test_torch_raft_train import variables  # noqa: F401 (fixture)
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 BF16 = dict(compute_dtype="bfloat16")
 

@@ -36,6 +36,7 @@ from motionpriorcmax_tpu_torch.models.raft_spline.update import BasicUpdateBlock
 from motionpriorcmax_tpu_torch.ops.basis import bernstein_basis
 from motionpriorcmax_tpu_torch.training.checkpoint import \
     flax_raft_spline_to_torch
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 SMALL = dict(nbins_context=5, nbins_correlation=3, bezier_degree=2,
              ev_target_indices=(2, 4), ev_levels=(1, 2), iters=2)

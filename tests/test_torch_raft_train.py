@@ -44,6 +44,7 @@ from motionpriorcmax_tpu_torch.training.checkpoint import \
 from motionpriorcmax_tpu_torch.training.loop import to_device
 from tests.test_raft_training import tiny_cfg
 from tests.test_torch_raft_spline import SMALL, _randomized
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 H, W = 32, 32
 LOSS_KW = dict(image_shape=(H, W), num_tref=1, num_bins=5, num_knn=4,

@@ -5,10 +5,11 @@ synthetic EVIMO2 tree and supervised on a synthetic MultiFlow tree (built
 as tests/test_raft_training.py and tests/test_multiflow.py build them);
 `traj-val` on MultiFlow.
 
-The CLI runs at the data's 384 x 512 with the Tab2L5 / MultiFlow
-experiment configs, cut by overrides to one iteration, Bezier degree 2,
-batch 1 and a 16-pixel loss superpixel so that it runs in seconds on the
-CPU.
+The CLI runs with the Tab2L5 / MultiFlow experiment configs, cut by
+overrides to one iteration, Bezier degree 2, batch 1 and a 16-pixel loss
+superpixel, at MultiFlow's 384 x 512 and on EVIMO2 samples resized to
+test_torch_traj_val.CLI_HW instead of 384 x 512, so that it runs in
+seconds on the CPU.
 """
 
 import json
@@ -21,6 +22,8 @@ import torch
 from motionpriorcmax_tpu_torch.cli.main import main
 from tests.test_multiflow import make_synthetic_multiflow
 from tests.test_raft_training import make_synthetic_evimo2
+from tests.test_torch_traj_val import small_evimo2
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 FAST = ["training.batch_size=1", "model.num_iter.train=1",
         "model.num_iter.test=1", "model.bezier_degree=2"]
@@ -99,17 +102,19 @@ def test_multiflow_reader_and_augmentor_match_jax(multiflow_tree):
 
 @pytest.fixture(scope="module")
 def selfsup_run(evimo2_tree, tmp_path_factory):
-    """One self-supervised traj-train CLI step with a validation pass; its
-    workdir."""
+    """One self-supervised traj-train CLI step with a validation pass, on
+    the EVIMO2 samples cut to test_torch_traj_val.CLI_HW; its workdir."""
     workdir = tmp_path_factory.mktemp("selfsup") / "run"
-    rc = main(["traj-train", "--device", "cpu",
-               "--config-dir", "config/trajectory_inference",
-               "--workdir", str(workdir), "--max-steps", "1",
-               "--log-every", "1", "--event-capacity", "4096",
-               "--val-every", "1", "--val-batch-size", "2",
-               "experiment=raft-spline_evimo2-300ms_ours-selfsup",
-               "checkpoint=/unused", f"dataset.path={evimo2_tree}",
-               "loss.lut_superpixel_size=16", "loss.num_knn=4", *FAST])
+    with pytest.MonkeyPatch.context() as mp:
+        small_evimo2(mp)
+        rc = main(["traj-train", "--device", "cpu",
+                   "--config-dir", "config/trajectory_inference",
+                   "--workdir", str(workdir), "--max-steps", "1",
+                   "--log-every", "1", "--event-capacity", "4096",
+                   "--val-every", "1", "--val-batch-size", "2",
+                   "experiment=raft-spline_evimo2-300ms_ours-selfsup",
+                   "checkpoint=/unused", f"dataset.path={evimo2_tree}",
+                   "loss.lut_superpixel_size=16", "loss.num_knn=4", *FAST])
     assert rc == 0
     return workdir
 
@@ -142,10 +147,13 @@ def test_traj_train_selfsup_cli_on_cpu(selfsup_run):
 
 @pytest.mark.parametrize("where", ["workdir", "checkpoints"])
 def test_traj_val_restores_traj_train_checkpoint_dir(selfsup_run, evimo2_tree,
-                                                     where, capsys):
+                                                     where, capsys,
+                                                     monkeypatch):
     # traj-val on traj-train's output restores its latest step: the metrics
     # of traj-train's own validation pass with the in-memory model, on the
-    # same eval split and batch size, up to traj-val's 5-decimal print.
+    # same eval split (cut to the same geometry) and batch size, up to
+    # traj-val's 5-decimal print.
+    small_evimo2(monkeypatch)
     ckpt = selfsup_run if where == "workdir" else selfsup_run / "checkpoints"
     recs = [json.loads(line) for line in
             (selfsup_run / "scalars.jsonl").read_text().splitlines()]

@@ -27,6 +27,7 @@ from motionpriorcmax_tpu_torch.training.raft_spline import (
     create_raft_model, raft_validation_step)
 from tests.test_raft_training import make_synthetic_evimo2, tiny_cfg
 from tests.test_torch_raft_spline import SMALL, _randomized
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, what):
@@ -132,12 +133,32 @@ def _traj_val_argv(tmp_path, ckpt, device):
             "batch_size=1", "model.num_iter.test=1", "model.bezier_degree=2"]
 
 
+# A CLI test's EVIMO2 geometry: the reader's 384 x 512 cut (the model and
+# the metrics take the data's resolution); 1/8 of it halves evenly three
+# times, as the correlation pyramid's levels need.
+CLI_HW = (64, 128)
+
+
+def small_evimo2(monkeypatch, hw=CLI_HW):
+    """Resize the port's EVIMO2 samples to `hw` instead of 384 x 512."""
+    from motionpriorcmax_tpu_torch.data.evimo2 import Evimo2Datasubset
+
+    init = Evimo2Datasubset.__init__
+
+    def small_init(self, *args, **kw):
+        init(self, *args, **kw)
+        self.resize_hw = hw
+
+    monkeypatch.setattr(Evimo2Datasubset, "__init__", small_init)
+
+
 @pytest.mark.filterwarnings("ignore")
-def test_traj_val_cli_on_cpu(tmp_path, capsys):
+def test_traj_val_cli_on_cpu(tmp_path, capsys, monkeypatch):
     from motionpriorcmax_tpu_torch.cli.main import main
     from motionpriorcmax_tpu_torch.training.checkpoint import (
         extract_model_weights, load_raft_spline_weights)
 
+    small_evimo2(monkeypatch)
     make_synthetic_evimo2(tmp_path / "data", n_flows=3)
     cfg = RAFTSplineConfig(bezier_degree=2, iters=1)
     ckpt = tmp_path / "Tab2L5.ckpt"

@@ -31,6 +31,7 @@ from motionpriorcmax_tpu_torch.training.checkpoint import flax_unet_to_torch
 from motionpriorcmax_tpu_torch.training.loop import to_device
 from tests.test_torch_flow_train import (H, LOSS_KW, NB, W, WIDTHS, configs,
                                          jax_state, make_events, port_state)
+from tests._one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
