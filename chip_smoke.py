@@ -228,21 +228,8 @@ Phases, one or more lines each; any failure exits non-zero:
      1.5), and train_flow on the (2, 1) mesh writing its scalars and
      checkpoint from rank 0 alone; a rank that fails or outlasts its
      timeout fails the script
-  the benchmarks (motionpriorcmax_tpu_torch/benchmarks/, each entry point
-  called as `main(argv)` at its own sizes and timed calls; every value
-  finite and positive, the key sets the JAX modules' less the TPU-only
-  ones):
- 47. components: the KNNs, the vote and its gradient, the device voxel
-     grid, the focus loss (exact, softmax, cell-sorted) at 480x640, b=2,
-     2^19 events per sample, K=32; then ops/scatter.py's scatter_add_1d
-     on the card: the same bits in two calls, against a float64 sum
- 48. raft: Tab2L5 at 384x512, B=1, f32 with no flags (forward, validation
-     step, self-supervised train step on 2^19 cell-sorted events), then
-     --supervised --compute-dtype bfloat16 --corr-dtype bfloat16
- 49. scaling: the sharded flow step in a world of one process over NCCL
- 50. scaling_hosts: train_flow in worlds of 1, 2 and 4 processes sharing
-     the card (NCCL for one, gloo for more), every rank's best agreeing
-     and the parity verdict true
+ 47. ops/scatter.py's scatter_add_1d on the card: the same bits in two
+     calls, against a float64 sum
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -4426,42 +4413,16 @@ def phase_parallel(torch, scfg, sloss, sorted_batch, unsorted_batch,
     return launches
 
 
-# -- the benchmarks: the JAX package's benchmarks/ in the port --------------
+# -- ops/scatter.py on the card ---------------------------------------------
 
-# Each entry point's metric keys (the JAX modules' less the three that time
-# the TPU's scatter layouts, see benchmarks/components.py).
-BENCH_COMPONENT_KEYS = (
-    "knn_exact_b2x15_19200x19200_k32_ms", "knn_approx_ms", "knn_grid_ms",
-    "iwe_scatter_direct_events_per_s", "iwe_scatter_fwd_bwd_events_per_s",
-    "voxelize_events_per_s", "focus_loss_exact_fwd_events_per_s",
-    "focus_loss_exact_fwd_bwd_events_per_s",
-    "focus_loss_softmax_fwd_bwd_events_per_s",
-    "focus_loss_sorted_fwd_bwd_events_per_s")
-BENCH_RAFT_RUNS = (
-    ([], ("raft_spline_fwd_12it_evimo2_ms", "raft_spline_valstep_ms",
-          "raft_spline_selfsup_trainstep_ms")),
-    (["--supervised", "--compute-dtype", "bfloat16", "--corr-dtype",
-      "bfloat16"], ("raft_spline_fwd_12it_evimo2_ms",
-                    "raft_spline_valstep_ms",
-                    "raft_spline_supervised_trainstep_ms")))
-BENCH_HOST_WORLDS = [1, 2, 4]
 # scatter_add_1d on the card: 2^22 values into 2^16 slots (runs of ~64),
 # the run sums against float64 sums of the same f32 values.
 SCATTER_CASE = (1 << 16, 1 << 22)
 TOL_SCATTER = 1e-5                 # relative to the largest |f64 sum|
 
 
-def bench_values(label, records):
-    """Fail unless every number of the records is finite and positive."""
-    for rec in records:
-        for k, v in rec.items():
-            if isinstance(v, (int, float)) and not isinstance(v, bool) \
-                    and not (np.isfinite(v) and v > 0):
-                fail(f"[{label}] {rec.get('metric', rec)}: {k} = {v}")
-
-
 def phase_scatter(torch):
-    """Phase 47's ops/scatter.py check on the card."""
+    """Phase 47: ops/scatter.py's scatter_add_1d on the card."""
     from motionpriorcmax_tpu_torch.ops import scatter_add_1d
 
     n, m = SCATTER_CASE
@@ -4483,60 +4444,6 @@ def phase_scatter(torch):
     print(f"[scatter] scatter_add_1d on the card: {m} values into {n} "
           f"slots, the same bits in two calls, {err:.2e} of the largest "
           f"float64 sum")
-
-
-def phase_benchmarks(torch, smi_line):
-    """Phases 47-50: each benchmarks/ entry point through its main(argv) at
-    its own sizes.  Returns {phase: seconds}."""
-    from motionpriorcmax_tpu_torch.benchmarks import (components, raft,
-                                                      scaling, scaling_hosts)
-
-    seconds = {}
-    t0 = time.perf_counter()
-    results = components.main([])
-    if tuple(results) != BENCH_COMPONENT_KEYS:
-        fail(f"[bench-components] keys {list(results)}")
-    bench_values("bench-components", [results])
-    phase_scatter(torch)
-    seconds["components"] = time.perf_counter() - t0
-    print(f"[bench-components] {json.dumps(results)}; "
-          f"{seconds['components']:.1f} s; card {smi_line}")
-    torch.cuda.empty_cache()
-
-    for argv, keys in BENCH_RAFT_RUNS:
-        t0 = time.perf_counter()
-        records = raft.main(argv)
-        if tuple(r["metric"] for r in records) != keys:
-            fail(f"[bench-raft] {argv}: records {records}")
-        bench_values("bench-raft", records)
-        tag = " ".join(argv) or "(no flags)"
-        seconds[f"raft {tag}"] = time.perf_counter() - t0
-        print(f"[bench-raft] {tag}: {json.dumps(records)}; "
-              f"{seconds[f'raft {tag}']:.1f} s; card {smi_line}")
-        torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    records = scaling.main([])
-    if [r.get("devices") for r in records] != [torch.cuda.device_count()] \
-            or records[0]["metric"] != "scaling_events_per_s" \
-            or records[0]["efficiency"] != 1.0:
-        fail(f"[bench-scaling] records {records}")
-    bench_values("bench-scaling", records)
-    seconds["scaling"] = time.perf_counter() - t0
-    print(f"[bench-scaling] a world of one over NCCL: {json.dumps(records)}; "
-          f"{seconds['scaling']:.1f} s; card {smi_line}")
-
-    t0 = time.perf_counter()
-    out = scaling_hosts.main([])
-    if [w["hosts"] for w in out["worlds"]] != BENCH_HOST_WORLDS \
-            or out["parity_vs_single_process"] is not True:
-        fail(f"[bench-scaling-hosts] {out}")
-    bench_values("bench-scaling-hosts", out["worlds"])
-    seconds["scaling_hosts"] = time.perf_counter() - t0
-    print(f"[bench-scaling-hosts] ranks sharing the card: "
-          f"{json.dumps(out)}; {seconds['scaling_hosts']:.1f} s; "
-          f"card {smi_line}")
-    return seconds
 
 
 FLOW_SOURCES = {
@@ -4853,11 +4760,9 @@ def main() -> int:
     del train_batch, unsorted_train, selfsup
     print(f"[done] multi-process phases {time.perf_counter() - t_par:.1f} s")
 
-    # The benchmarks (phases 47-50)
+    # ops/scatter.py (phase 47)
     torch.cuda.empty_cache()
-    t_bench = time.perf_counter()
-    phase_benchmarks(torch, smi_line)
-    print(f"[done] benchmark phases {time.perf_counter() - t_bench:.1f} s")
+    phase_scatter(torch)
     # Row 1 in the bf16 requests (phase 40): launches per request (the warm-up
     # included) and the kernel on their bf16 pyramid.
     kernels[0]["bf16_compute"] = {"request_launches": bf16_launches / 4,

@@ -391,16 +391,21 @@ def multiflow_eval_subset(ds: dict, nbins_context: int):
 def stack_traj_batch(samples: Sequence[dict], device: torch.device,
                      use_boundary_images: bool) -> Dict[str, torch.Tensor]:
     """Collate provider samples into a trajectory-validation batch on device."""
-    def put(key):
-        return torch.from_numpy(np.stack([s[key] for s in samples])).to(device)
+    from ..utils import profiling
 
-    batch = {"ev_repr": put("ev_repr"), "flow": put("flow")}
+    def put(arrays):
+        with profiling.scope("batch.stack"):
+            host = torch.from_numpy(np.stack(arrays))
+        profiling.count_h2d(host, device)
+        with profiling.scope("batch.h2d"):
+            return host.to(device)
+
+    batch = {"ev_repr": put([s["ev_repr"] for s in samples]),
+             "flow": put([s["flow"] for s in samples])}
     if "flow_valid" in samples[0]:
-        batch["flow_valid"] = put("flow_valid")
+        batch["flow_valid"] = put([s["flow_valid"] for s in samples])
     if use_boundary_images and "img" in samples[0]:
-        batch["img"] = [
-            torch.from_numpy(np.stack([s["img"][j] for s in samples])).to(device)
-            for j in range(2)]
+        batch["img"] = [put([s["img"][j] for s in samples]) for j in range(2)]
     return batch
 
 

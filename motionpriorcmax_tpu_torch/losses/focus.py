@@ -32,6 +32,7 @@ from ..ops import gradients as grad_ops
 from ..device import no_tf32
 from ..ops.cuda.softmax_interp import softmax_interp
 from ..ops.knn import knn_blocked, knn_grid_window
+from ..utils.profiling import scope
 
 EPS = 1e-9
 KNN_METHODS = ("exact", "approx", "grid", "grid_approx", "softmax")
@@ -181,7 +182,7 @@ def interpolate_flow(cfg: FocusLossConfig, traj_at_tref: torch.Tensor,
     # integers; the reference's KeOps argKmin).
     windowed = cfg.knn_method.startswith("grid")
     db = traj_at_tmid.detach().reshape(b * n_bins, n, 2)
-    with torch.no_grad():
+    with torch.no_grad(), scope("loss.knn"):
         if windowed:
             idx, dist = knn_grid_window(
                 grid_points, db, cfg.num_knn, norm=cfg.dist_norm,
@@ -553,20 +554,26 @@ def focus_loss(cfg: FocusLossConfig, trajectories: torch.Tensor,
     """
     if cfg.polarity_aware_batching and num_pos_events < 0:
         raise ValueError("polarity_aware_batching needs num_pos_events")
-    t_ref = times[:cfg.num_tref]
-    flow_lut, flow_to_next = interpolate_flow(
-        cfg, trajectories[:, :cfg.num_tref], trajectories[:, cfg.num_tref:])
-    warped = warp_events(cfg, events, flow_lut, cell_ends)
-    npos = num_pos_events if mesh is None else \
-        mesh.local_capacity(num_pos_events)
-    iwes = make_iwes(cfg, warped, events, t_ref, npos, mesh)
-
-    focus = grad_ops.focus_objective(iwes, loss_type=cfg.loss_type,
-                                     norm=cfg.focus_loss_norm,
-                                     epsilon=cfg.focus_loss_epsilon,
-                                     mesh=mesh)
-    smooth = calculate_smooth_loss(cfg, flow_lut, flow_to_next, mesh)
-    loss = focus + smooth
+    with scope("loss.forward"):
+        t_ref = times[:cfg.num_tref]
+        with scope("loss.interpolate"):
+            flow_lut, flow_to_next = interpolate_flow(
+                cfg, trajectories[:, :cfg.num_tref],
+                trajectories[:, cfg.num_tref:])
+        with scope("loss.warp"):
+            warped = warp_events(cfg, events, flow_lut, cell_ends)
+        npos = num_pos_events if mesh is None else \
+            mesh.local_capacity(num_pos_events)
+        with scope("loss.vote"):
+            iwes = make_iwes(cfg, warped, events, t_ref, npos, mesh)
+        with scope("loss.objective"):
+            focus = grad_ops.focus_objective(iwes, loss_type=cfg.loss_type,
+                                             norm=cfg.focus_loss_norm,
+                                             epsilon=cfg.focus_loss_epsilon,
+                                             mesh=mesh)
+        with scope("loss.smooth"):
+            smooth = calculate_smooth_loss(cfg, flow_lut, flow_to_next, mesh)
+        loss = focus + smooth
 
     h, w = cfg.image_shape
     b, n_tref = warped.shape[:2]

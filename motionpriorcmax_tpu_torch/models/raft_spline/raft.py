@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ...device import no_tf32
+from ...utils.profiling import scope
 from ..basis_mlp import BasisMLP
 from .corr import build_corr_pyramid, compute_corr_volume, lookup_corr_pyramid
 from .curves import (CURVE_TYPES, coords_grid, curve_basis_matrix,
@@ -176,7 +177,8 @@ class RAFTSpline(nn.Module):
         if iters < 1:
             raise ValueError("iters must be >= 1")
         keep_all = not test_mode
-        with no_tf32():             # the f32 parts stay f32 on the card
+        # the f32 parts stay f32 on the card
+        with no_tf32(), scope("model.forward"):
             params_seq, mask_seq = self._refine(voxel_grid, images, iters,
                                                 keep_all)
             if test_mode:
@@ -200,9 +202,11 @@ class RAFTSpline(nn.Module):
             if voxel_grid is None:
                 raise ValueError("use_events needs voxel_grid")
             corr_grids, context_input = self.gen_voxel_grids(voxel_grid)
-            fmaps = [f.float() for f in self.fnet_ev(corr_grids)]
-            corr_volumes.append(compute_corr_volume(fmaps[0],
-                                                    torch.stack(fmaps[1:])))
+            with scope("model.encode"):
+                fmaps = [f.float() for f in self.fnet_ev(corr_grids)]
+            with scope("model.corr_pyramid"):
+                corr_volumes.append(compute_corr_volume(
+                    fmaps[0], torch.stack(fmaps[1:])))
             dt = 1.0 / (cfg.nbins_context - 1)
             lookup_ts.extend(dt * i for i in cfg.ev_target_indices)
 
@@ -210,19 +214,23 @@ class RAFTSpline(nn.Module):
             if images is None or len(images) != 2:
                 raise ValueError("use_boundary_images needs an image pair")
             imgs = [2.0 * (im.float() / 255.0) - 1.0 for im in images]
-            fm = [f.float() for f in self.fnet_img(imgs)]
-            corr_volumes.append(compute_corr_volume(fm[0], fm[1][None]))
+            with scope("model.encode"):
+                fm = [f.float() for f in self.fnet_img(imgs)]
+            with scope("model.corr_pyramid"):
+                corr_volumes.append(compute_corr_volume(fm[0], fm[1][None]))
             lookup_ts.append(1.0)
             context_input = (imgs[0] if context_input is None
                              else torch.cat([context_input, imgs[0]], dim=1))
 
-        corr = torch.cat(corr_volumes, dim=0).to(_DTYPES[cfg.corr_dtype])
-        pyramid = build_corr_pyramid(corr, cfg.levels)
-        del corr, corr_volumes
+        with scope("model.corr_pyramid"):
+            corr = torch.cat(corr_volumes, dim=0).to(_DTYPES[cfg.corr_dtype])
+            pyramid = build_corr_pyramid(corr, cfg.levels)
+            del corr, corr_volumes
 
-        cnet = self.cnet(context_input).float()
-        net = torch.tanh(cnet[:, :cfg.hidden_dim])
-        inp = torch.relu(cnet[:, cfg.hidden_dim:])
+        with scope("model.encode"):
+            cnet = self.cnet(context_input).float()
+            net = torch.tanh(cnet[:, :cfg.hidden_dim])
+            inp = torch.relu(cnet[:, cfg.hidden_dim:])
 
         b, _, h, w = context_input.shape
         dev = context_input.device
@@ -239,13 +247,15 @@ class RAFTSpline(nn.Module):
         for _ in range(iters):
             if cfg.detach_bezier:
                 params = params.detach()
-            pv = params.reshape(b, 2, cfg.bezier_degree, *params.shape[2:])
-            flows = torch.einsum("bdphw,tp->tbdhw", pv, basis_mat)
-            coords1 = coords0[None] + flows
-            corr_total = lookup_corr_pyramid(pyramid, coords1, cfg.radius)
-            net, up_mask, delta = self.update_block(net, inp, corr_total,
-                                                    params)
-            params = params + delta
+            with scope("model.update"):
+                pv = params.reshape(b, 2, cfg.bezier_degree,
+                                    *params.shape[2:])
+                flows = torch.einsum("bdphw,tp->tbdhw", pv, basis_mat)
+                coords1 = coords0[None] + flows
+                corr_total = lookup_corr_pyramid(pyramid, coords1, cfg.radius)
+                net, up_mask, delta = self.update_block(net, inp, corr_total,
+                                                        params)
+                params = params + delta
             if not keep_all:
                 params_seq.clear()
                 mask_seq.clear()

@@ -44,6 +44,7 @@ from ..losses import FocusLossConfig, focus_loss, get_reconstruction_times
 from ..metrics import MetricBank
 from ..ops import events as ev_ops
 from ..parallel import event_shard_batch, replicate
+from ..utils import profiling
 from ..utils.image_logging import ImagePanelLogger, log_flow_epoch_images
 from .checkpoint import save_checkpoint
 from .raft_spline import (RAFTTrainState, raft_supervised_train_step,
@@ -101,15 +102,17 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
     allocator keeps it until the copy is done)."""
     dev = torch.device(device)
     out = {}
-    for key, val in batch.items():
-        if key in _HOST_KEYS:
-            continue
-        t = torch.from_numpy(np.asarray(val))
-        if dev.type == "cuda" and not t.is_pinned():
-            t = t.pin_memory()
-        if key == "forward_flow":
-            key = "gt_flow"
-        out[key] = t.to(dev, non_blocking=True)
+    with profiling.scope("batch.to_device"):
+        for key, val in batch.items():
+            if key in _HOST_KEYS:
+                continue
+            t = torch.from_numpy(np.asarray(val))
+            if dev.type == "cuda" and not t.is_pinned():
+                t = t.pin_memory()
+            if key == "forward_flow":
+                key = "gt_flow"
+            profiling.count_h2d(t, dev)
+            out[key] = t.to(dev, non_blocking=True)
     return out
 
 

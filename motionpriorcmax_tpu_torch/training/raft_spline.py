@@ -45,6 +45,7 @@ from ..ops.gradients import batch_mean
 from ..ops.grids import tile_mask_positions
 from ..ops.padding import pad_to_multiple, requires_padding, unpad
 from ..parallel.mesh import sync_batch_norm
+from ..utils import profiling
 
 
 @torch.no_grad()
@@ -99,8 +100,9 @@ def raft_validation_step(model: RAFTSpline, batch: Dict[str, torch.Tensor],
       {'val/<metric>': value, 'val/<metric>__weight': weight, ...} tensors.
     """
     cfg = model.cfg
+    profiling.count("requests.eval")
     # f32 throughout, the curve evaluation's einsum included.
-    with torch.inference_mode(), no_tf32():
+    with torch.inference_mode(), no_tf32(), profiling.scope("step.eval"):
         ev_repr = batch["ev_repr"]
         images = batch.get("img")
         # Pad H, W to multiples of 8 around the forward; predictions are
@@ -265,20 +267,22 @@ def _refuse_learned(cfg: RAFTSplineConfig, step: str) -> None:
 
 
 def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor,
-                     mesh=None) -> None:
+                     mesh=None, split: Optional[torch.Tensor] = None) -> None:
     """Backward (TF32 off) and, every accumulate_steps calls, one AdamW and
     schedule step on the running gradient mean (optax.MultiSteps).
 
     Parameters the loss does not reach get a zero gradient, so that AdamW
     decays them as optax does.  With a mesh, the gradients are averaged
     over the world first.  After an update `p.grad` holds the gradient
-    that was applied."""
+    that was applied.  `split`: the tensor the model handed to the loss,
+    where `profiling.backward` splits the backward's spans."""
     params = list(state.model.parameters())
     with no_tf32():
-        loss.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+        profiling.backward(loss, split)
+    with profiling.scope("step.optimizer"):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     if mesh is not None:
         mesh.average_gradients(params)
     state.step += 1
@@ -295,9 +299,10 @@ def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor,
             p.grad.copy_(acc)
             acc.zero_()
         state.mini_step = 0
-    state.optimizer.step()
-    if state.scheduler is not None:
-        state.scheduler.step()
+    with profiling.scope("step.optimizer"):
+        state.optimizer.step()
+        if state.scheduler is not None:
+            state.scheduler.step()
 
 
 def curve_focus_loss(cfg: RAFTSplineConfig, loss_cfg: FocusLossConfig,
@@ -308,14 +313,15 @@ def curve_focus_loss(cfg: RAFTSplineConfig, loss_cfg: FocusLossConfig,
     trajectory per superpixel (the grid sampled at its centre pixels),
     evaluated at `times`, channels (x, y) flipped to the loss's (y, x)."""
     s = loss_cfg.lut_superpixel_size
-    sel = params_up[:, :, s // 2::s, s // 2::s]               # [B, 2deg, Hn, Wn]
-    flows = curve_flow_from_reference(sel, times, cfg.curve_type)
-    t_, b = flows.shape[:2]
-    flows_yx = torch.stack([flows[:, :, 1], flows[:, :, 0]], dim=2)
-    offsets = torch.from_numpy(tile_mask_positions(
-        loss_cfg.image_shape, s).astype(np.float32)).to(params_up.device)
-    traj = offsets[None, None] + flows_yx.reshape(t_, b, 2, -1).permute(
-        1, 0, 3, 2)                                          # [B, T, N, 2]
+    with profiling.scope("loss.forward"):
+        sel = params_up[:, :, s // 2::s, s // 2::s]       # [B, 2deg, Hn, Wn]
+        flows = curve_flow_from_reference(sel, times, cfg.curve_type)
+        t_, b = flows.shape[:2]
+        flows_yx = torch.stack([flows[:, :, 1], flows[:, :, 0]], dim=2)
+        offsets = torch.from_numpy(tile_mask_positions(
+            loss_cfg.image_shape, s).astype(np.float32)).to(params_up.device)
+        traj = offsets[None, None] + flows_yx.reshape(t_, b, 2, -1).permute(
+            1, 0, 3, 2)                                      # [B, T, N, 2]
     return focus_loss(loss_cfg, traj, times, batch["events"],
                       num_pos_events=num_pos_events,
                       cell_ends=batch.get("lut_cell_ends"), mesh=mesh)
@@ -351,52 +357,60 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
     model = state.model
     cfg = model.cfg
     _refuse_learned(cfg, "raft_train_step")
-    device = batch["ev_repr"].device
-    if times is None:
-        times = get_reconstruction_times(loss_cfg, generator, device)
-    times = times.to(device)
+    profiling.count("steps.train")
+    with profiling.scope("step.train"):
+        device = batch["ev_repr"].device
+        if times is None:
+            times = get_reconstruction_times(loss_cfg, generator, device)
+        times = times.to(device)
 
-    def score(params_up):
-        return curve_focus_loss(cfg, loss_cfg, params_up, times, batch,
-                                num_pos_events, mesh)
+        def score(params_up):
+            return curve_focus_loss(cfg, loss_cfg, params_up, times, batch,
+                                    num_pos_events, mesh)
 
-    model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    with no_tf32(), sync_batch_norm(model, mesh):
-        if gamma is None:
-            _, params_up = model(batch["ev_repr"], batch.get("img"),
-                                 test_mode=True)
-            loss, log_data, _ = score(params_up)
-            logs = {f"train_losses/{k}": v for k, v in log_data.items()}
-        else:
-            params_seq, mask_seq = model(batch["ev_repr"], batch.get("img"),
-                                         return_sequences=True)
-            n = params_seq.shape[0]
-            if gamma_sample_k is not None and 0 < gamma_sample_k < n - 1:
-                k = gamma_sample_k
-                if sample_idx is None:
-                    sample_idx = torch.randperm(n - 1, generator=generator)[:k]
-                idx = [int(i) for i in sample_idx]
-                if len(idx) != k or len(set(idx)) != k or not all(
-                        0 <= i < n - 1 for i in idx):
-                    raise ValueError(f"sample_idx must be {k} distinct "
-                                     f"iterations in [0, {n - 1}), got {idx}")
-                idx.append(n - 1)
-                scale = torch.full((k + 1,), (n - 1) / k, device=device)
-                scale[-1] = 1.0
+        model.train()
+        with profiling.scope("step.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        split = None
+        with no_tf32(), sync_batch_norm(model, mesh):
+            if gamma is None:
+                _, params_up = model(batch["ev_repr"], batch.get("img"),
+                                     test_mode=True)
+                loss, log_data, _ = score(params_up)
+                split = params_up
+                logs = {f"train_losses/{k}": v for k, v in log_data.items()}
             else:
-                idx = list(range(n))
-                scale = torch.ones(n, device=device)
-            losses = torch.stack([score(cvx_upsample(params_seq[i],
-                                                     mask_seq[i]))[0]
-                                  for i in idx])
-            expo = torch.tensor([n - 1 - i for i in idx], dtype=torch.float32,
-                                device=device)
-            loss = torch.sum(gamma ** expo * scale * losses)
-            logs = {"train_losses/focus_final": losses[-1].detach()}
-    _apply_gradients(state, loss, mesh)
-    logs["train_losses/total"] = loss.detach()
-    return logs
+                params_seq, mask_seq = model(batch["ev_repr"],
+                                             batch.get("img"),
+                                             return_sequences=True)
+                n = params_seq.shape[0]
+                if gamma_sample_k is not None and 0 < gamma_sample_k < n - 1:
+                    k = gamma_sample_k
+                    if sample_idx is None:
+                        sample_idx = torch.randperm(
+                            n - 1, generator=generator)[:k]
+                    idx = [int(i) for i in sample_idx]
+                    if len(idx) != k or len(set(idx)) != k or not all(
+                            0 <= i < n - 1 for i in idx):
+                        raise ValueError(
+                            f"sample_idx must be {k} distinct iterations "
+                            f"in [0, {n - 1}), got {idx}")
+                    idx.append(n - 1)
+                    scale = torch.full((k + 1,), (n - 1) / k, device=device)
+                    scale[-1] = 1.0
+                else:
+                    idx = list(range(n))
+                    scale = torch.ones(n, device=device)
+                losses = torch.stack([score(cvx_upsample(params_seq[i],
+                                                         mask_seq[i]))[0]
+                                      for i in idx])
+                expo = torch.tensor([n - 1 - i for i in idx],
+                                    dtype=torch.float32, device=device)
+                loss = torch.sum(gamma ** expo * scale * losses)
+                logs = {"train_losses/focus_final": losses[-1].detach()}
+        _apply_gradients(state, loss, mesh, split)
+        logs["train_losses/total"] = loss.detach()
+        return logs
 
 
 def raft_supervised_train_step(state: RAFTTrainState,

@@ -34,6 +34,7 @@ from ..ops.flow_error import calculate_flow_error
 from ..ops.grids import (coeffs_grid_to_list, dense_flow_from_traj,
                          tile_mask_positions)
 from ..parallel.mesh import sync_batch_norm
+from ..utils import profiling
 from .raft_spline import init_weights
 
 
@@ -169,7 +170,7 @@ def voxelize_batch_on_device(cfg: TrajectoryNetConfig,
     `events` are this rank's event shard: its partial grids are summed
     over the event axis before the clamp and the normalization."""
     h, w = cfg.image_shape
-    with torch.no_grad():
+    with torch.no_grad(), profiling.scope("step.voxelize"):
         grids = ev_ops.voxel_grid_from_events(events, num_bins=cfg.num_bins,
                                               height=h, width=w)
         if mesh is not None:
@@ -198,15 +199,17 @@ def _step(model: TrajectoryModel, batch: Dict[str, torch.Tensor],
     if voxel is None:
         voxel = voxelize_batch_on_device(cfg, batch["events"], mesh)
     with no_tf32(), sync_batch_norm(model, mesh):
-        coeff_grid = model(voxel)
-        traj = calculate_trajectories(cfg, coeff_grid, times,
-                                      loss_cfg.is_needing_offsets,
-                                      model.basis)
+        with profiling.scope("model.forward"):
+            coeff_grid = model(voxel)
+            traj = calculate_trajectories(cfg, coeff_grid, times,
+                                          loss_cfg.is_needing_offsets,
+                                          model.basis)
         loss, log_data, misc = focus_loss(
             loss_cfg, traj, times, batch["events"],
             num_pos_events=num_pos_events,
             cell_ends=batch.get("lut_cell_ends"), mesh=mesh)
     misc["coeff_grid"] = coeff_grid
+    misc["traj"] = traj
     return loss, log_data, misc
 
 
@@ -228,21 +231,25 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     model = state.model
     if model.cfg != cfg:
         raise ValueError("state.model was built for another config")
-    device = next(model.parameters()).device
-    if times is None:
-        times = get_reconstruction_times(loss_cfg, generator, device)
-    model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, log_data, _ = _step(model, batch, loss_cfg, times.to(device),
-                              num_pos_events, mesh)
-    with no_tf32():
-        loss.backward()
-    if mesh is not None:
-        mesh.average_gradients(model.parameters())
-    state.optimizer.step()
-    state.step += 1
-    logs = {"train_losses/total": loss.detach()}
-    logs.update({f"train_losses/{k}": v for k, v in log_data.items()})
+    profiling.count("steps.train")
+    with profiling.scope("step.train"):
+        device = next(model.parameters()).device
+        if times is None:
+            times = get_reconstruction_times(loss_cfg, generator, device)
+        model.train()
+        with profiling.scope("step.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        loss, log_data, misc = _step(model, batch, loss_cfg,
+                                     times.to(device), num_pos_events, mesh)
+        with no_tf32():
+            profiling.backward(loss, misc["traj"])
+        if mesh is not None:
+            mesh.average_gradients(model.parameters())
+        with profiling.scope("step.optimizer"):
+            state.optimizer.step()
+        state.step += 1
+        logs = {"train_losses/total": loss.detach()}
+        logs.update({f"train_losses/{k}": v for k, v in log_data.items()})
     return logs
 
 
