@@ -53,8 +53,8 @@ Phases, one or more lines each; any failure exits non-zero:
  11. training: train_flow (the CLI's loop) at full width with seeded
      weights on 1 warm-up + 2 timed steps and one val pass with GT flow,
      checkpoint to a temporary directory: step ms, events/s, peak memory,
-     kernel launches per step (2 + 2 vote, 1 + 1 gather), finite loss that
-     changes, finite val EPE
+     kernel launches per step (2 + 2 vote, 1 + 1 gather, 1 exact KNN) and
+     in the val pass, finite loss that changes, finite val EPE
  12. where the time goes: CUDA events around UNet forward, trajectories,
      KNN + interpolation, warp, vote + blur + objective, backward and
      AdamW over 2 steps, then torch.profiler over one step (idle share)
@@ -188,9 +188,10 @@ Phases, one or more lines each; any failure exits non-zero:
      loader collates it (DataLoader.collate: capacity 2^20, polarity
      packing, LUT-cell sort): the 25 PNGs named as the JAX package names
      them and read back as 480x640 RGB, ms per render, collate and
-     colorize + PNG, launches per render (5 vote forwards, 1 LUT gather);
-     then the same with knn_method softmax and the voxel grid voted in the
-     render (+2 softmax forwards, +1 voxel vote)
+     colorize + PNG, launches per render (5 vote forwards, 1 LUT gather,
+     2 exact KNNs); then the same with knn_method softmax and the voxel
+     grid voted in the render (+2 softmax forwards, +1 voxel vote, no
+     exact KNN)
  39. card vs CPU: one sample's render at the test geometry (f32 UNet),
      exact KNN with the host voxel and softmax with the device voxel
   RAFT-Spline with model.compute_dtype and model.corr_dtype bfloat16:
@@ -230,6 +231,18 @@ Phases, one or more lines each; any failure exits non-zero:
      timeout fails the script
  47. ops/scatter.py's scatter_add_1d on the card: the same bits in two
      calls, against a float64 sum
+  the exact KNN (ops/knn.py::knn_blocked, knn_method exact and approx):
+ 48. the fused distance + top-K kernel (csrc/knn_topk.cu) at the
+     flow-training shape (G=210, Q=N=19,200, K=32) and the traj-train one
+     (G=246, Q=N=12,288) on make_trajectories-like points (knn_case) in
+     the loss's order, shuffled, and with a flow ten times as large: one
+     launch per knn_blocked call, the same bits in two calls, check_knn
+     (the K smallest values in order, distances bit for bit the plain
+     refinement's, index sets torch.topk's except at ties at the K-th
+     value, taken to the lower index); its time (CUDA events, L2 flushed)
+     on each database, beside its bound (5 f32 operations per pair at the
+     maximum SM clock) and the plain version's, which is knn_blocked
+     before the kernel (distance blocks, torch.topk)
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -1678,14 +1691,18 @@ def edge_events(b, m, h, w, ty, tx, seed):
 FLOW_KERNELS = ("iwe_vote_fwd", "iwe_vote_bwd", "lut_gather_fwd",
                 "lut_segsum_bwd")
 SOFTMAX_KERNELS = ("softmax_interp_fwd", "softmax_interp_bwd", "voxel_vote")
-# Launches per train step and in the val pass of the two flow-train paths.
+# Launches per train step and in the val pass (one batch) of the two
+# flow-train paths; the exact KNN's kernel once per focus loss.
 EXACT_STEP = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
               "lut_segsum_bwd": 1, "softmax_interp_fwd": 0,
               "softmax_interp_bwd": 0, "voxel_vote": 0,
-              "grid_segment_sum": 0}
+              "grid_segment_sum": 0, "knn_topk": 1}
 EXACT_VAL = {**EXACT_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0}
+# knn_method grid: the window KNN, plain PyTorch, in place of the kernel.
+GRID_STEP = {**EXACT_STEP, "knn_topk": 0}
+GRID_VAL = {**EXACT_VAL, "knn_topk": 0}
 SOFTMAX_STEP = {**EXACT_STEP, "softmax_interp_fwd": 1,
-                "softmax_interp_bwd": 1, "voxel_vote": 1}
+                "softmax_interp_bwd": 1, "voxel_vote": 1, "knn_topk": 0}
 SOFTMAX_VAL = {**SOFTMAX_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0,
                "softmax_interp_bwd": 0}
 # The softmax / device-voxel step on unsorted events: no LUT-gather kernels
@@ -1698,6 +1715,7 @@ UNSORTED_VAL = {**SOFTMAX_VAL, "lut_gather_fwd": 0}
 
 def kernel_wrappers():
     from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
+    from motionpriorcmax_tpu_torch.ops.cuda import knn_topk as kt
     from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
     from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
     from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
@@ -1709,7 +1727,8 @@ def kernel_wrappers():
            "softmax_interp_fwd": si.softmax_interp_fwd,
            "softmax_interp_bwd": si.softmax_interp_bwd,
            "voxel_vote": vv.voxel_vote,
-           "grid_segment_sum": ss.grid_segment_sum}
+           "grid_segment_sum": ss.grid_segment_sum,
+           "knn_topk": kt.knn_topk}
     return fns
 
 
@@ -2058,7 +2077,7 @@ TRAJ_STEP = {"corr_window_lookup": 12, "corr_window_lookup_bwd": 48,
              **EXACT_STEP}
 TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 12}
 TRAJ_SOFTMAX_STEP = {**TRAJ_STEP, "softmax_interp_fwd": 1,
-                     "softmax_interp_bwd": 1}
+                     "softmax_interp_bwd": 1, "knn_topk": 0}
 TRAJ_SUPERVISED_STEP = {**TRAJ_VAL, "corr_window_lookup_bwd": 48}
 
 
@@ -2684,7 +2703,8 @@ def phase_traj_card_vs_cpu(torch):
             ("raft_train_step", selfsup,
              {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels, "iwe_vote_fwd": 2,
-              "iwe_vote_bwd": 2, "lut_gather_fwd": 1, "lut_segsum_bwd": 1}),
+              "iwe_vote_bwd": 2, "lut_gather_fwd": 1, "lut_segsum_bwd": 1,
+              "knn_topk": 1}),
             ("raft_supervised_train_step", supervised,
              {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels})):
@@ -3243,7 +3263,8 @@ BENCHMARK_WINDOWS = 416
 # that zlib compresses several times slower.
 INFER_OUT_BIAS = 48.0
 INFER_STEP = {**EXACT_STEP, "iwe_vote_fwd": 0, "iwe_vote_bwd": 0,
-              "lut_gather_fwd": 0, "lut_segsum_bwd": 0, "voxel_vote": 1}
+              "lut_gather_fwd": 0, "lut_segsum_bwd": 0, "voxel_vote": 1,
+              "knn_topk": 0}
 
 
 def infer_vote_events(torch, n, seed, h=480, w=640, nb=15):
@@ -3689,12 +3710,14 @@ PANEL_SAMPLES = 5                  # utils/image_logging.py's N_SAMPLES
 PANEL_IMAGES = ("0_unwarped", "1_gt_iwe", "2_iwe", "3_gt_flow", "4_flow")
 # Launches per render of one sample (the unwarped image's vote, the eval
 # step's two polarity halves and its LUT gather, the GT IWE's two halves
-# on events in collate order), and with knn_method softmax and the voxel
-# grid voted in the render (one softmax forward for the step and one for
-# the GT IWE, one voxel vote for both the step and the predicted flow).
+# on events in collate order, one exact KNN for the step and one for the
+# GT IWE), and with knn_method softmax and the voxel grid voted in the
+# render (one softmax forward for the step and one for the GT IWE, one
+# voxel vote for both the step and the predicted flow).
 RENDER_EXACT = {**{k: 0 for k in EXACT_STEP}, "iwe_vote_fwd": 5,
-                "lut_gather_fwd": 1}
-RENDER_SOFTMAX = {**RENDER_EXACT, "softmax_interp_fwd": 2, "voxel_vote": 1}
+                "lut_gather_fwd": 1, "knn_topk": 2}
+RENDER_SOFTMAX = {**RENDER_EXACT, "softmax_interp_fwd": 2, "voxel_vote": 1,
+                  "knn_topk": 0}
 # Card vs CPU render at the test geometry: each image against its CPU
 # version, relative to the image's largest |value| (the f32 step of phase
 # 13 agrees to ~1e-6; the panel's IWEs are that step's).
@@ -4446,6 +4469,177 @@ def phase_scatter(torch):
           f"float64 sum")
 
 
+# The exact KNN's shapes: (label, batch, bins, height, width) of the
+# flow-training step (dsec.yaml) and of the traj-train step (Tab2L5).
+KNN_PATHS = (("flow", 14, 15, 480, 640), ("traj", 6, 41, 384, 512))
+KNN_K = 32
+KNN_OPS_PER_PAIR = 5               # csrc/knn_topk.cu: the kernel's bound
+# The databases phase 48 runs the kernel on, (name, knn_case's motion in px
+# per unit time, shuffled): the focus loss's order, the same points in a
+# random order (the scan's start near the queries' rows then helps no
+# more), and a flow ten times as large (up to ~100 px across the window).
+KNN_VARIANTS = (("ordered", 3.0, False), ("shuffled", 3.0, True),
+                ("wide", 30.0, False))
+# Distance entries per block of check_knn (~512 MB of f32).
+KNN_CHECK_BLOCK_ELEMS = 1 << 27
+
+
+def knn_case(seed, b, nb, h, w, every=16, motion=3.0, shuffle=False):
+    """(queries [Q, 2], database [b * nb, N, 2]) as f32 numpy arrays of a
+    focus loss's KNN: the LUT grid at superpixel 4, and trajectories of the
+    4 x 4 tiles moved as tests/test_torch_focus_loss.py::make_trajectories
+    moves them (grid offsets jittered by U(-0.3, 0.3), N(0, motion) px per
+    unit time) at the bin midtimes, with every `every`-th point copied onto
+    the next one (exact ties; 0: none) and, with `shuffle`, each
+    database's points in a random order."""
+    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
+    from motionpriorcmax_tpu_torch.losses.focus import lut_grid_points
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.arange(2, h, 4), np.arange(2, w, 4)
+    off = np.stack(np.meshgrid(ys, xs, indexing="ij"), -1).reshape(-1, 2)
+    c = rng.normal(0, motion, (b, off.shape[0], 2))
+    off = off + rng.uniform(-0.3, 0.3, off.shape)
+    times = (np.arange(nb) + 0.5) / nb
+    db = (off[None, None] + times[None, :, None, None] * c[:, None]).astype(
+        np.float32).reshape(b * nb, -1, 2)
+    if every:
+        db[:, 1::every] = db[:, 0::every][:, :db[:, 1::every].shape[1]]
+    if shuffle:
+        order = np.argsort(rng.random(db.shape[:2]), axis=1)
+        db = np.take_along_axis(db, order[..., None], axis=1)
+    grid = lut_grid_points(FocusLossConfig(image_shape=(h, w), num_bins=nb))
+    return grid, np.ascontiguousarray(db)
+
+
+def check_knn(queries, database, k, norm, idx, dist):
+    """Hold (idx, dist) of K = min(k, N) nearest to `pairwise_dist`'s
+    values v (ops/cuda/knn_topk.py), computed blockwise on the tensors'
+    device; an AssertionError names the first breach.  Per query:
+      * the K values v[idx] are the K smallest of the row, in order, and
+        at equal values the indices ascend;
+      * where the K-th and (K+1)-th smallest values differ, the set equals
+        torch.topk's (the plain version's selection);
+      * where they are equal, the tied indices taken are the lowest ones;
+      * dist is bit for bit the plain version's: for l2 the refined
+        (q - p)^2 sum of the selected points, for l1 v itself.
+    Returns (rows with a tie at the K-th value, of them the rows where
+    torch.topk's set equals the lower-index one)."""
+    import torch
+
+    from motionpriorcmax_tpu_torch.device import no_tf32
+    from motionpriorcmax_tpu_torch.ops.cuda.knn_topk import pairwise_dist
+
+    g, n, _ = database.shape
+    nq = queries.shape[0]
+    k = min(k, n)
+    assert idx.shape == (g, nq, k) and dist.shape == (g, nq, k)
+    assert idx.dtype == torch.int64 and dist.dtype == torch.float32
+    block = max(1, min(nq, KNN_CHECK_BLOCK_ELEMS // (g * n)))
+    tie_rows = topk_lower = 0
+    for q0 in range(0, nq, block):
+        qb = queries[q0:q0 + block]
+        ib, db_ = idx[:, q0:q0 + block], dist[:, q0:q0 + block]
+        with no_tf32():
+            v = pairwise_dist(qb, database, norm)                # [G, Cq, N]
+        kv = torch.gather(v, 2, ib)
+        tv, ti = torch.topk(v, min(k + 1, n), dim=-1, largest=False,
+                            sorted=True)
+        assert torch.equal(kv, tv[..., :k]), "not the K smallest values"
+        same = kv[..., 1:] == kv[..., :-1]
+        assert bool((ib[..., 1:] > ib[..., :-1])[same].all()), \
+            "equal values out of index order"
+        if norm == "l2":
+            sel = torch.gather(database, 1, ib.reshape(g, -1, 1).expand(
+                -1, -1, 2)).reshape(g, -1, k, 2)
+            diffs = qb[None, :, None, :] - sel
+            want = torch.sum(diffs * diffs, dim=-1)
+        else:
+            want = kv
+        assert torch.equal(db_, want), "distances differ from plain's bits"
+        if k == n:
+            continue
+        tie = tv[..., k - 1] == tv[..., k]
+        sets_k = torch.sort(ib, dim=-1).values
+        sets_t = torch.sort(ti[..., :k], dim=-1).values
+        assert torch.equal(sets_k[~tie], sets_t[~tie]), \
+            "index sets differ without a tie at the K-th value"
+        if not bool(tie.any()):
+            continue
+        rows = tie.nonzero(as_tuple=True)
+        vv = v[rows]                                             # [R, N]
+        thr = tv[..., k - 1][rows]
+        mask = vv == thr[:, None]
+        need = (kv[rows] == thr[:, None]).sum(-1)
+        lowest = mask & (torch.cumsum(mask.int(), -1) <= need[:, None])
+        got = torch.zeros_like(mask).scatter_(1, ib[rows], True)
+        assert torch.equal(got & mask, lowest), "a tie not to the lower index"
+        tie_rows += len(thr)
+        topk_lower += int((sets_k[rows] == sets_t[rows]).all(-1).sum())
+    return tie_rows, topk_lower
+
+
+def phase_knn_topk(torch):
+    """Phase 48: the exact KNN's fused kernel (ops/cuda/knn_topk.py) at the
+    flow-training and traj-train shapes on each of KNN_VARIANTS' databases,
+    held to check_knn, and its time beside its operations bound and, on
+    the loss's order, the plain version's, which is today's knn_blocked
+    before the kernel (distance blocks, torch.topk)."""
+    from motionpriorcmax_tpu_torch.ops import knn
+    from motionpriorcmax_tpu_torch.ops.cuda import knn_topk as kt
+
+    clock = sm_clock_hz()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, b, nb, h, w in KNN_PATHS:
+        for variant, motion, shuffle in KNN_VARIANTS:
+            queries, db = (torch.from_numpy(a).cuda() for a in knn_case(
+                48, b, nb, h, w, motion=motion, shuffle=shuffle))
+            g, n, _ = db.shape
+            q = queries.shape[0]
+            before = kt.knn_topk.launches
+            idx, dist = knn.knn_blocked(queries, db, KNN_K)
+            torch.cuda.synchronize()
+            if kt.knn_topk.launches != before + 1:
+                fail("[knn] knn_blocked did not launch the kernel once")
+            try:
+                ties, topk_lower = check_knn(queries, db, KNN_K, "l2", idx,
+                                             dist)
+            except AssertionError as err:
+                fail(f"[knn] {label} {variant}: {err}")
+            i2, d2 = kt.knn_topk(queries, db, KNN_K)
+            if not (torch.equal(idx, i2) and torch.equal(dist, d2)):
+                fail(f"[knn] {label} {variant}: two calls gave other bits")
+            del idx, dist, i2, d2
+            k_ms = time_ms(torch, lambda: kt.knn_topk(queries, db, KNN_K),
+                           flush, reps=10)
+            line = (f"[knn] {label} {variant} (N(0, {motion:g}) px per unit "
+                    f"time{', shuffled' if shuffle else ''}): G={g} Q={q} "
+                    f"N={n} K={KNN_K}: kernel {k_ms:.2f} ms; {ties} rows "
+                    f"tie at the K-th value, the lower indices taken, "
+                    f"torch.topk's set the same in {topk_lower}; two calls "
+                    "the same bits")
+            if variant != "ordered":
+                out[label][f"{variant}_ms"] = k_ms
+                print(line)
+            else:
+                pairs = g * q * n
+                bound = pairs * KNN_OPS_PER_PAIR / (132 * 128 * clock) * 1e3
+                p_ms = time_ms(
+                    torch, lambda: kt.knn_topk_plain(queries, db, KNN_K),
+                    flush, reps=3, warmup=1)
+                print(f"{line}; {pairs:.3e} pairs, bound {bound:.2f} ms "
+                      f"({KNN_OPS_PER_PAIR} f32 operations per pair at "
+                      f"{clock / 1e9:.2f} GHz), plain = knn_blocked before "
+                      f"the kernel {p_ms:.1f} ms")
+                out[label] = {"ms": k_ms, "plain_ms": p_ms,
+                              "library_ms": p_ms, "bound_ms": bound,
+                              "bound_by": "operations", "tie_rows": ties,
+                              "topk_lower_at_ties": topk_lower}
+            del queries, db
+            torch.cuda.empty_cache()
+    return out
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -4667,10 +4861,10 @@ def main() -> int:
         **DSEC_CONFIG["loss"], "knn_method": "grid"}})
     phase_flow_train(
         torch, gcfg, gloss, {**train_batch, "voxel": host_voxel[0]},
-        {**val_batch, "voxel": host_voxel[1]}, smi_line, EXACT_STEP,
-        EXACT_VAL, tag="grid-train", n_steps=PART_B_STEPS)
+        {**val_batch, "voxel": host_voxel[1]}, smi_line, GRID_STEP,
+        GRID_VAL, tag="grid-train", n_steps=PART_B_STEPS)
     torch.cuda.empty_cache()
-    phase_flow_card_vs_cpu(torch, {"knn_method": "grid"},
+    phase_flow_card_vs_cpu(torch, {"knn_method": "grid"}, want=GRID_STEP,
                            tag="grid-card-vs-cpu")
     print(f"[done] phase 35 {time.perf_counter() - t_b:.1f} s")
     lcfg, lloss = flow_configs({**DSEC_CONFIG, "loss": {
@@ -4763,6 +4957,9 @@ def main() -> int:
     # ops/scatter.py (phase 47)
     torch.cuda.empty_cache()
     phase_scatter(torch)
+    # The exact KNN's fused kernel (phase 48)
+    torch.cuda.empty_cache()
+    knn_numbers = phase_knn_topk(torch)
     # Row 1 in the bf16 requests (phase 40): launches per request (the warm-up
     # included) and the kernel on their bf16 pyramid.
     kernels[0]["bf16_compute"] = {"request_launches": bf16_launches / 4,
@@ -4815,6 +5012,21 @@ def main() -> int:
                         "index_add_ of the eight taps)",
                 **infer_numbers}
         kernels.append(entry)
+
+    kernels.append({
+        "name": "knn_topk", "route": "cuda",
+        "source": "motionpriorcmax_tpu_torch/csrc/knn_topk.cu",
+        "replaces": "none: the JAX package's KNN is XLA's lax.top_k",
+        "launches": flow_launches["knn_topk"],
+        "traj_train_launches": traj_launches["knn_topk"],
+        "panel_render_launches": render_launches.get("knn_topk", 0),
+        **knn_numbers["flow"], "traj": knn_numbers["traj"],
+        "work": "the flow-training step's exact KNN: G=210, Q=N=19,200, "
+                "K=32, l2 (traj: the traj-train step's G=246, Q=N=12,288; "
+                "*_ms by database: the loss's order, shuffled, a flow ten "
+                "times as large; bound: 5 f32 operations per pair at the "
+                "maximum SM clock; plain and library: knn_blocked before "
+                "the kernel, distance blocks and torch.topk)"})
 
     for entry in kernels:
         # Phases 43-45: launches per step of each rank on the sharded paths

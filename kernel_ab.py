@@ -1,8 +1,9 @@
 """Time kernels of two or more checkouts of the PyTorch port on one card,
 under the same timers, in one call: the corr-window lookup (kernel row 1),
 the voxel vote (kernel row 8), the IWE vote's forward and backward (rows 3
-and 4), the LUT gather's two backwards (rows 6 and 5) and the softmax
-interpolation (row 7).
+and 4), the LUT gather's two backwards (rows 6 and 5), the softmax
+interpolation (row 7) and the exact KNN (`knn_blocked`: the fused distance +
+top-K kernel, or distance blocks and torch.topk before it).
 
     python3 kernel_ab.py parent=path/to/other/checkout change=. \
         --order parent,change,change,parent
@@ -65,12 +66,22 @@ each call, these sections:
                calls differ in a bit), and "digest", the SHA-1 of the
                bytes of out, den and d vals with -0 made +0: equal digests
                in two runs mean equal values, bit for bit, up to the sign
-               of a zero.
+               of a zero;
+  knn          `ops/knn.py::knn_blocked` as the focus loss calls it
+               (K=32, l2) on chip_smoke.knn_case's databases: "flow_*"
+               (the flow-training step's G=210, Q=N=19,200) and "traj_*"
+               (the traj-train step's G=246, Q=N=12,288), each in the
+               loss's order ("_ordered"), shuffled ("_shuffled") and with
+               a flow ten times as large ("_wide"); a checkout before
+               the fused kernel (csrc/knn_topk.cu) runs distance blocks
+               and torch.topk there, the yardstick; "digest" of the
+               indices and distances (the two ways may break ties at the
+               K-th value differently).
 
 `--sections softmax,lookup` runs only those sections (default: all).
 
-Two timers, each the median of 20 calls (10 in `softmax`) between two CUDA
-events:
+Two timers, each the median of 20 calls (10 in `softmax`, 5 in `knn`)
+between two CUDA events:
   ms       the events recorded around the call as `chip_smoke.py`'s `ms`
            is: when the host takes longer to enqueue the call than the card
            takes to flush, the host's launch overhead is in it;
@@ -104,10 +115,11 @@ import time
 
 import functools
 
-from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, LEVELS, Q, RADIUS,
-                        TOL_SEGMENT_SUM, TOL_SEGSUM, TOL_SOFTMAX,
-                        TOL_VOTE_BWD, TOL_VOTE_FWD, W, level_inputs,
-                        nvidia_smi_line, segment_sum_cases, segsum_cases,
+from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, KNN_K, KNN_PATHS,
+                        KNN_VARIANTS, LEVELS, Q, RADIUS, TOL_SEGMENT_SUM,
+                        TOL_SEGSUM, TOL_SOFTMAX, TOL_VOTE_BWD, TOL_VOTE_FWD,
+                        W, knn_case, level_inputs, nvidia_smi_line,
+                        segment_sum_cases, segsum_cases,
                         softmax_cases,
                         softmax_loss_cfgs, vote_band_share, vote_batch,
                         vote_cases)
@@ -393,6 +405,29 @@ def run_softmax(torch, flush):
     return out
 
 
+def run_knn(torch, flush):
+    """ops/knn.py::knn_blocked as the focus loss calls it, at the flow and
+    traj-train shapes on chip_smoke.knn_case's databases."""
+    from motionpriorcmax_tpu_torch.ops import knn
+
+    out = {}
+    for label, b, nb, h, w in KNN_PATHS:
+        for variant, motion, shuffle in KNN_VARIANTS:
+            queries, db = (torch.from_numpy(a).cuda() for a in knn_case(
+                48, b, nb, h, w, motion=motion, shuffle=shuffle))
+            idx, dist = knn.knn_blocked(queries, db, KNN_K)
+            res = {"digest": digest(idx)[:8] + digest(dist)[:8]}
+            del idx, dist
+            ms, card_ms, host_us = timers(
+                torch, lambda: knn.knn_blocked(queries, db, KNN_K), flush,
+                reps=5)
+            res.update(ms=ms, card_ms=card_ms, host_us=host_us)
+            out[f"{label}_{variant}"] = res
+            del queries, db
+            torch.cuda.empty_cache()
+    return out
+
+
 def staging() -> None:
     """Level 1 staged by cp.async (the port's kernel) and by TMA."""
     import ctypes
@@ -456,14 +491,17 @@ def staging() -> None:
 SECTIONS = {"lookup": run_lookup, "voxel_vote": run_vote,
             "iwe_vote": run_iwe_vote, "iwe_vote_bwd": run_iwe_vote_bwd,
             "segsum": run_segsum,
-            "segment_sum": run_segment_sum, "softmax": run_softmax}
+            "segment_sum": run_segment_sum, "softmax": run_softmax,
+            "knn": run_knn}
 # The cases of each section, in the order of the table.
 CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
          "iwe_vote": ("sorted", "unsorted", "skewed", "wide"),
          "iwe_vote_bwd": ("sorted", "unsorted", "skewed", "wide",
                           "unsorted_strided"),
          "segsum": ("sorted", "skewed", "traj"),
-         "segment_sum": ("path", "skewed", "traj")}
+         "segment_sum": ("path", "skewed", "traj"),
+         "knn": tuple(f"{p[0]}_{v[0]}" for p in KNN_PATHS
+                      for v in KNN_VARIANTS)}
 
 
 def worker(label: str, tree: str, sections: str) -> None:

@@ -2,17 +2,19 @@
 database points, `knn_grid_window` over a spatial-hash window, and
 `knn_batched` with per-batch queries.
 
-Plain PyTorch: the JAX package has no kernel here (it uses lax.top_k and
+`knn_blocked` is `ops/cuda/knn_topk.py::knn_topk`: on a CUDA tensor one
+launch of the fused distance + top-K kernel (csrc/knn_topk.cu; one per 64
+neighbours above K = 64), which never materialises the distances; on a CPU
+tensor its plain version, distance
+blocks and torch.topk.  Both rank squared-l2 distances by the expanded form
+|q|^2 - 2 q.db + |db|^2 as JAX does, the cross term in full f32, and refine
+the K selected ones by direct subtraction.  The kernel breaks ties at the
+K-th distance toward the lower database index; the plain version and JAX's
+`lax.top_k` may break them otherwise.  `knn_grid_window` is plain PyTorch
+on every device.  The JAX package has no kernel here (it uses lax.top_k and
 lax.approx_min_k).  Method 'approx' computes the exact K nearest: JAX's
 lax.approx_min_k is exact off the TPU (it falls back to a sort there), so
 only the order of equal distances can differ, as with 'exact'.
-
-Distances are ranked with the same expanded form |q|^2 - 2 q.db + |db|^2 as
-JAX (`torch.cdist` ranks near-ties differently), the cross term in full
-f32 (TF32 would round pixel coordinates of ~640 to errors of hundreds of
-px^2), and the K selected squared-l2 distances are then refined by direct
-subtraction.  Ties at the K-th neighbour may still be broken differently
-from `lax.top_k`.
 """
 
 from __future__ import annotations
@@ -21,29 +23,12 @@ from typing import Tuple
 
 import torch
 
-from ..device import no_tf32
+from .cuda.knn_topk import knn_topk
 
-# Distance entries per block: queries are processed in blocks of
-# max(1, KNN_BLOCK_ELEMS // (G * N)) rows, bounding the [G, block, N]
-# distance tensor (and the top-k's scratch) to ~1 GiB of f32.
-KNN_BLOCK_ELEMS = 1 << 28
 # Candidate entries per block of knn_grid_window: [G, block, (2R+1)^2 C]
 # candidates with their int64 indices and (y, x) positions, ~2 GiB.
 GRID_BLOCK_ELEMS = 1 << 26
 METHODS = ("exact", "approx")
-
-
-def _pairwise_dist(q: torch.Tensor, db: torch.Tensor, norm: str
-                   ) -> torch.Tensor:
-    """[Cq, D] x [G, N, D] -> [G, Cq, N] squared-l2 or l1 distances."""
-    if norm == "l2":
-        qq = torch.sum(q * q, dim=-1)[None, :, None]            # [1, Cq, 1]
-        dd = torch.sum(db * db, dim=-1)[:, None, :]             # [G, 1, N]
-        cross = torch.matmul(q[None], db.transpose(1, 2))       # [G, Cq, N]
-        return qq - 2.0 * cross + dd
-    if norm == "l1":
-        return (q[None, :, None, :] - db[:, None, :, :]).abs().sum(-1)
-    raise ValueError(f"unknown dist norm {norm!r}")
 
 
 def _check_method(method: str) -> None:
@@ -57,7 +42,8 @@ def knn_blocked(queries: torch.Tensor, database: torch.Tensor, k: int, *,
     """K nearest database points of each query, for G databases at once.
 
     Args:
-      queries: [Q, D] query coordinates (shared by all databases).
+      queries: [Q, D] query coordinates (shared by all databases; D = 2 on
+        a CUDA tensor).
       database: [G, N, D] database coordinates.
       k: neighbours; min(k, N) are returned.
       norm: 'l2' (squared euclidean, the reference's) or 'l1'.
@@ -67,25 +53,8 @@ def knn_blocked(queries: torch.Tensor, database: torch.Tensor, k: int, *,
       (indices [G, Q, K] int64, distances [G, Q, K] f32), nearest first.
     """
     _check_method(method)
-    g, n, d = database.shape
-    q = queries.shape[0]
-    k = min(k, n)
-    block = max(1, min(q, KNN_BLOCK_ELEMS // max(g * n, 1)))
-    idx_out, dist_out = [], []
-    with no_tf32():
-        for q0 in range(0, q, block):
-            qb = queries[q0:q0 + block]
-            dist = _pairwise_dist(qb, database, norm)
-            nd, idx = torch.topk(dist, k, dim=-1, largest=False, sorted=True)
-            if norm == "l2":
-                sel = torch.gather(
-                    database[:, None].expand(-1, qb.shape[0], -1, -1), 2,
-                    idx[..., None].expand(-1, -1, -1, d))      # [G, Cq, K, D]
-                diffs = qb[None, :, None, :] - sel
-                nd = torch.sum(diffs * diffs, dim=-1)
-            idx_out.append(idx)
-            dist_out.append(nd)
-    return torch.cat(idx_out, dim=1), torch.cat(dist_out, dim=1)
+    return knn_topk(queries.contiguous(), database.contiguous(), k,
+                    norm=norm)
 
 
 def grid_cell_table(database: torch.Tensor, cell_size: float,

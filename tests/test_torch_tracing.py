@@ -19,6 +19,7 @@ No JAX here: the card test runs with `--noconftest` on the GPU machine.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -423,3 +424,31 @@ def test_profiled_flow_step_on_card():
               - min(e.start_ns() for e in events)) / 1e6
     assert busy / 1e6 <= step * 1.01 + 0.05
     assert step <= window
+
+
+@pytest.mark.cuda
+def test_flow_step_knn_is_one_kernel_launch_on_card():
+    """Two exact-KNN flow steps on the card under torch.profiler: one
+    `knn_topk` launch per `loss.knn` span, and the only device kernels of
+    the top-k class (perfbench/kernels/classes.json's patterns) are the
+    fused kernel's, one per span: no torch.topk runs in the step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    run = flow_step(False, device="cuda", steps=2)
+    run()                                   # warm-up: build, cuDNN
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    snap = profiling.snapshot()
+    spans = snap["spans"]["loss.knn"]["count"]
+    assert spans == 2
+    assert snap["counters"]["launches.knn_topk"] == spans
+    topk = [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type().name != "CPU" and re.search(
+                "topk|TopK|radixFindKthValues|radixSelect|bitonicSort|"
+                "sortKeyValueInplace", e.name())]
+    assert len(topk) == spans
+    assert all("knn_topk_kernel" in name for name in topk), topk
