@@ -340,6 +340,7 @@ def raft_config_from_tree(mc: dict, phase: str = "test"):
         use_boundary_images=mc.get("use_boundary_images", False),
         ev_target_indices=tuple(mc["correlation"]["ev"]["target_indices"]),
         ev_levels=tuple(mc["correlation"]["ev"]["levels"]),
+        img_levels=mc["correlation"].get("img", {}).get("levels", 4),
         iters=mc["num_iter"][phase],
         freeze_bn=mc.get("freeze_bn", False),
         corr_dtype=mc.get("corr_dtype", "float32"),
@@ -405,7 +406,8 @@ def stack_traj_batch(samples: Sequence[dict], device: torch.device,
     if "flow_valid" in samples[0]:
         batch["flow_valid"] = put([s["flow_valid"] for s in samples])
     if use_boundary_images and "img" in samples[0]:
-        batch["img"] = [put([s["img"][j] for s in samples]) for j in range(2)]
+        # [B, 2, 3, H, W], as collate.stack_samples stacks it.
+        batch["img"] = put([np.stack(s["img"]) for s in samples])
     return batch
 
 

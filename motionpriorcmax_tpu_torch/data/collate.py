@@ -92,7 +92,7 @@ def prepare_sample(sample: Dict[str, np.ndarray], capacity: int,
 
 _STACKED = ("lut_cell_ends", "events", "voxel", "forward_flow", "flow_valid",
             "timestamp", "file_index", "ev_repr", "flow", "flow_timestamps",
-            "id_mask")
+            "id_mask", "img")
 
 
 def stack_samples(prepared: List[Dict[str, np.ndarray]],
@@ -130,7 +130,8 @@ def collate_fixed_capacity(samples: List[Dict[str, np.ndarray]],
         when polarity_aware), optional 'voxel' [C, H, W], 'forward_flow'
         [2, H, W], 'flow_valid' [H, W], 'timestamp', 'file_index', 'name',
         and the trajectory samples' 'ev_repr', 'flow', 'flow_timestamps',
-        'id_mask' (stacked as they are).
+        'id_mask' (stacked as they are) and 'img' (MultiFlow's pair of
+        boundary frames [3, H, W], stacked to [B, 2, 3, H, W]).
       capacity: per-sample event capacity (both halves together when
         polarity_aware).
       pos_capacity: positive capacity (capacity // 2 when None).

@@ -22,6 +22,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ...ops.cuda.corr_window import CorrPyramidLookup
+from ...utils import profiling
 
 Pyramid = List[Tuple[Tuple[int, ...], torch.Tensor]]
 
@@ -100,8 +101,11 @@ def lookup_corr_pyramid(pyramid: Pyramid, coords: torch.Tensor,
       all levels and, under autograd, one backward launch per level; the
       gradient reaches the volumes and `coords` (through the bilinear
       fractions; the per-level 1/2^l scale is torch's, outside the kernel).
+      Counts its windows, sum_l T_l * B * h1 * w1, on `corr.windows`.
     """
-    h1, w1 = coords.shape[-2:]
+    _, b, _, h1, w1 = coords.shape
+    profiling.count("corr.windows",
+                    sum(len(idx) for idx, _ in pyramid) * b * h1 * w1)
     tensors = [t for level in lookup_inputs(pyramid, coords) for t in level]
     return CorrPyramidLookup.apply(radius, h1, w1, *tensors)
 

@@ -214,7 +214,7 @@ class RAFTSpline(nn.Module):
             if images is None or len(images) != 2:
                 raise ValueError("use_boundary_images needs an image pair")
             imgs = [2.0 * (im.float() / 255.0) - 1.0 for im in images]
-            with scope("model.encode"):
+            with scope("model.encode"), scope("model.encode_images"):
                 fm = [f.float() for f in self.fnet_img(imgs)]
             with scope("model.corr_pyramid"):
                 corr_volumes.append(compute_corr_volume(fm[0], fm[1][None]))

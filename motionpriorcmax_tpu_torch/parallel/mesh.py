@@ -206,8 +206,8 @@ def _rows(mesh: Mesh, val):
 def shard_batch(mesh: Mesh, batch: Dict[str, Any], num_pos_events: int = -1
                 ) -> Dict[str, Any]:
     """A global batch (numpy arrays or tensors) -> this rank's share: the
-    data rank's rows of every array (lists of arrays, as 'img', element by
-    element), then the event shard of its events
+    data rank's rows of every array (lists of arrays element by element),
+    then the event shard of its events
     (`distributed.event_shard_batch`).  Scalars stay."""
     local = {k: _rows(mesh, v) for k, v in batch.items()}
     return event_shard_batch(mesh, local, num_pos_events)

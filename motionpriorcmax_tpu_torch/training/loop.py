@@ -285,7 +285,8 @@ def train_traj(state: RAFTTrainState, train_loader: Iterable, workdir: str,
     `loss_cfg` selects the self-supervised step (focus loss, `gamma` and
     `gamma_sample_k` as raft_train_step takes them); None the supervised
     step (gamma 0.8).  Batches are numpy dicts from data/loader.py; their
-    'num_pos_events' overrides `num_pos_events`.  t_ref and the gamma
+    'num_pos_events' overrides `num_pos_events`, and their boundary frames
+    'img' reach the step when the model takes them.  t_ref and the gamma
     subsample come from a torch.Generator seeded `seed`.
 
     `validate(model) -> {metric: float}` runs in eval mode every
@@ -305,6 +306,8 @@ def train_traj(state: RAFTTrainState, train_loader: Iterable, workdir: str,
         replicate(mesh, state)
     dev = next(state.model.parameters()).device
     gen = torch.Generator().manual_seed(seed)
+    keys = _TRAJ_KEYS[kind] + (("img",) if state.model.cfg.use_boundary_images
+                               else ())
     ckpt_dir = str(Path(workdir) / "checkpoints")
     best = float("inf")
     n_steps = 0
@@ -329,7 +332,7 @@ def train_traj(state: RAFTTrainState, train_loader: Iterable, workdir: str,
             epoch_steps = n_steps
             for batch in train_loader:
                 npos = batch.get("num_pos_events", num_pos_events)
-                batch = {k: batch[k] for k in _TRAJ_KEYS[kind] if k in batch}
+                batch = {k: batch[k] for k in keys if k in batch}
                 if mesh is not None:
                     batch = event_shard_batch(mesh, batch, npos)
                 dev_batch = to_device(batch, dev)

@@ -77,6 +77,16 @@ def create_raft_model(cfg: RAFTSplineConfig, device=None,
     return model.to(dev).eval()
 
 
+def boundary_images(batch: Dict[str, torch.Tensor]
+                    ) -> Optional[Sequence[torch.Tensor]]:
+    """The batch's boundary frames as the model takes them: the pair of
+    [B, 3, H, W] views of the stacked 'img' [B, 2, 3, H, W] that every
+    step's batch holds (collate.stack_samples, cli stack_traj_batch); None
+    without."""
+    img = batch.get("img")
+    return None if img is None else img.unbind(1)
+
+
 def raft_validation_step(model: RAFTSpline, batch: Dict[str, torch.Tensor],
                          flow_timestamps: Sequence[float],
                          min_traj_len: Optional[float] = None,
@@ -89,7 +99,7 @@ def raft_validation_step(model: RAFTSpline, batch: Dict[str, torch.Tensor],
       model: RAFTSpline in eval mode.
       batch: 'ev_repr' [B, nbins_total, H, W], 'flow' [B, M, 2, H, W]
         (channel 0 = x), optional 'flow_valid' [B, M, H, W], optional 'img'
-        pair; all on the model's device.
+        [B, 2, 3, H, W]; all on the model's device.
       flow_timestamps: the M GT timestamps (EVIMO2: linspace(0,1,M+1)[1:]).
       min_traj_len, max_traj_len: optional GT-arc-length gate on the multi
         metrics.
@@ -104,7 +114,7 @@ def raft_validation_step(model: RAFTSpline, batch: Dict[str, torch.Tensor],
     # f32 throughout, the curve evaluation's einsum included.
     with torch.inference_mode(), no_tf32(), profiling.scope("step.eval"):
         ev_repr = batch["ev_repr"]
-        images = batch.get("img")
+        images = boundary_images(batch)
         # Pad H, W to multiples of 8 around the forward; predictions are
         # pointwise in the upsampled params, so unpadding params_up equals
         # unpadding every predicted flow.
@@ -267,15 +277,15 @@ def _refuse_learned(cfg: RAFTSplineConfig, step: str) -> None:
 
 
 def _apply_gradients(state: RAFTTrainState, loss: torch.Tensor,
-                     mesh=None, split: Optional[torch.Tensor] = None) -> None:
+                     mesh=None, split=None) -> None:
     """Backward (TF32 off) and, every accumulate_steps calls, one AdamW and
     schedule step on the running gradient mean (optax.MultiSteps).
 
     Parameters the loss does not reach get a zero gradient, so that AdamW
     decays them as optax does.  With a mesh, the gradients are averaged
     over the world first.  After an update `p.grad` holds the gradient
-    that was applied.  `split`: the tensor the model handed to the loss,
-    where `profiling.backward` splits the backward's spans."""
+    that was applied.  `split`: the tensor, or tensors, the model handed
+    to the loss, where `profiling.backward` splits the backward's spans."""
     params = list(state.model.parameters())
     with no_tf32():
         profiling.backward(loss, split)
@@ -346,7 +356,7 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
 
     Args:
       batch: 'ev_repr' [B, nbins_total, H, W], 'events' [B, M, 6], optional
-        'lut_cell_ends' and 'img', on the model's device.
+        'lut_cell_ends' and 'img' [B, 2, 3, H, W], on the model's device.
       generator: draws t_ref (unless `times`) and the subsample (unless
         `sample_idx`, the K drawn iteration indices in [0, iters - 1)).
         With a mesh it must draw the same on every rank.
@@ -374,14 +384,14 @@ def raft_train_step(state: RAFTTrainState, batch: Dict[str, torch.Tensor],
         split = None
         with no_tf32(), sync_batch_norm(model, mesh):
             if gamma is None:
-                _, params_up = model(batch["ev_repr"], batch.get("img"),
+                _, params_up = model(batch["ev_repr"], boundary_images(batch),
                                      test_mode=True)
                 loss, log_data, _ = score(params_up)
                 split = params_up
                 logs = {f"train_losses/{k}": v for k, v in log_data.items()}
             else:
                 params_seq, mask_seq = model(batch["ev_repr"],
-                                             batch.get("img"),
+                                             boundary_images(batch),
                                              return_sequences=True)
                 n = params_seq.shape[0]
                 if gamma_sample_k is not None and 0 < gamma_sample_k < n - 1:
@@ -424,7 +434,8 @@ def raft_supervised_train_step(state: RAFTTrainState,
     Args:
       batch: 'ev_repr' [B, nbins_total, H, W]; 'flow' [B, T, 2, H, W]
         (channel 0 = x); 'flow_timestamps' [B, T], one cadence for the
-        batch (row 0 is used); optional 'flow_valid' [B, T, H, W] and 'img'.
+        batch (row 0 is used); optional 'flow_valid' [B, T, H, W] and
+        'img' [B, 2, 3, H, W].
       mesh: a parallel.Mesh; `batch` is then the rank's share of the
         global batch, and each iteration's (masked) mean is taken over the
         global batch, sum(err * mask) / sum(mask) with both sums over the
@@ -434,33 +445,39 @@ def raft_supervised_train_step(state: RAFTTrainState,
     model = state.model
     cfg = model.cfg
     _refuse_learned(cfg, "raft_supervised_train_step")
-    gt = batch["flow"].movedim(1, 0)                         # [T, B, 2, H, W]
-    ts = batch["flow_timestamps"][0]
-    valid = batch.get("flow_valid")
-    vmask = (None if valid is None
-             else valid.movedim(1, 0)[:, :, None].float())  # [T, B, 1, H, W]
-    model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    with no_tf32(), sync_batch_norm(model, mesh):
-        params_seq, mask_seq = model(batch["ev_repr"], batch.get("img"),
-                                     return_sequences=True)
-        losses = []
-        for p, m in zip(params_seq, mask_seq):
-            pred = curve_flow_from_reference(cvx_upsample(p, m), ts,
-                                             cfg.curve_type)
-            err = (pred - gt).abs()
-            if vmask is None:
-                losses.append(batch_mean(err, mesh))
-                continue
-            sums = torch.stack([torch.sum(err * vmask), vmask.sum()])
-            if mesh is not None:
-                sums = mesh.data_sum(sums)
-            losses.append(sums[0] / (2.0 * torch.clamp(sums[1], min=1.0)))
-        losses = torch.stack(losses)
-        n = losses.shape[0]
-        expo = torch.arange(n - 1, -1, -1, dtype=losses.dtype,
-                            device=losses.device)
-        loss = torch.sum(gamma ** expo * losses)
-    _apply_gradients(state, loss, mesh)
-    return {"train_losses/l1_final": losses[-1].detach(),
-            "train_losses/total": loss.detach()}
+    profiling.count("steps.train")
+    with profiling.scope("step.train"):
+        gt = batch["flow"].movedim(1, 0)                     # [T, B, 2, H, W]
+        ts = batch["flow_timestamps"][0]
+        valid = batch.get("flow_valid")
+        vmask = (None if valid is None
+                 else valid.movedim(1, 0)[:, :, None].float())
+        model.train()
+        with profiling.scope("step.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with no_tf32(), sync_batch_norm(model, mesh):
+            params_seq, mask_seq = model(batch["ev_repr"],
+                                         boundary_images(batch),
+                                         return_sequences=True)
+            with profiling.scope("loss.forward"):
+                losses = []
+                for p, m in zip(params_seq, mask_seq):
+                    pred = curve_flow_from_reference(cvx_upsample(p, m), ts,
+                                                     cfg.curve_type)
+                    err = (pred - gt).abs()
+                    if vmask is None:
+                        losses.append(batch_mean(err, mesh))
+                        continue
+                    sums = torch.stack([torch.sum(err * vmask), vmask.sum()])
+                    if mesh is not None:
+                        sums = mesh.data_sum(sums)
+                    losses.append(sums[0]
+                                  / (2.0 * torch.clamp(sums[1], min=1.0)))
+                losses = torch.stack(losses)
+                n = losses.shape[0]
+                expo = torch.arange(n - 1, -1, -1, dtype=losses.dtype,
+                                    device=losses.device)
+                loss = torch.sum(gamma ** expo * losses)
+        _apply_gradients(state, loss, mesh, (params_seq, mask_seq))
+        return {"train_losses/l1_final": losses[-1].detach(),
+                "train_losses/total": loss.detach()}

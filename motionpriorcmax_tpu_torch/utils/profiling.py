@@ -11,9 +11,10 @@ program's spans and its counters.
     records a pair of timing events on the current stream, resolved only
     when read.
   * `backward(loss, split)`: `loss.backward()`.  While a profiler is on,
-    the backward is two spans: `loss.backward` until the gradient of
-    `split` (the tensor the model hands to the loss) is complete, then
-    `model.backward`; one `step.backward` span when `split` is None.
+    the backward is two spans: `loss.backward` until the gradients of
+    `split` (the tensor, or tensors, the model hands to the loss) are
+    complete, then `model.backward`; one `step.backward` span when `split`
+    is None.
   * `count(name, n)`, `count_h2d(tensor, device)`: counters, always on
     (integer adds on the host).
   * `snapshot()`: the counters, the ops/cuda wrappers' `.launches`, and per
@@ -24,20 +25,23 @@ Span names (`<layer>.<what>`):
   batch.stack, batch.h2d     cli/main.py::stack_traj_batch's np.stack and
                              copies to the device
   batch.to_device            training/loop.py::to_device
-  step.train                 trajectory_net.train_step, raft_train_step
+  step.train                 trajectory_net.train_step, raft_train_step,
+                             raft_supervised_train_step
   step.eval                  raft_validation_step
   step.voxelize              voxelize_batch_on_device
   step.optimizer             zero_grad, the zero-fill of missing gradients,
                              optimizer.step and the schedule's step
-  step.backward              a backward that is not split (the gamma and
-                             supervised RAFT steps)
+  step.backward              a backward that is not split (the gamma
+                             RAFT step)
   model.forward              the UNet with calculate_trajectories, or
                              RAFTSpline.forward
   model.encode, model.corr_pyramid, model.update
                              RAFTSpline's encoders, correlation volumes and
                              pyramid, and each refinement iteration
-  loss.forward               focus_loss, and curve_focus_loss's sampling of
-                             the curves
+  model.encode_images        RAFTSpline's frame encoder, inside model.encode
+  loss.forward               focus_loss, curve_focus_loss's sampling of the
+                             curves, and the supervised step's upsampling,
+                             curves and L1 of every iteration
   loss.interpolate, loss.knn, loss.warp, loss.vote, loss.objective,
   loss.smooth                focus_loss's parts (loss.knn inside
                              loss.interpolate; loss.vote with the blur)
@@ -47,8 +51,10 @@ A span belongs to the step whose `step.train` or `step.eval` span is the
 next to close after it opens: a request's batch spans share its step's.
 
 Counters: h2d.pageable_bytes and h2d.pinned_bytes (bytes copied from host
-memory to a device, by the source's kind), steps.train, requests.eval; the
-snapshot adds launches.<wrapper> from the wrappers' own counts.
+memory to a device, by the source's kind), steps.train, requests.eval,
+corr.windows (the correlation windows RAFTSpline looks up: sum over the
+pyramid's levels of targets x batch x h/8 x w/8, per lookup); the snapshot
+adds launches.<wrapper> from the wrappers' own counts.
 
 The JAX module's `sync` modes ('element', 'full', 'sum') and `scalarize`
 have no counterpart: they exist because `block_until_ready` did not block
@@ -63,7 +69,7 @@ import os
 import socket
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Sequence, Union
 
 import torch
 
@@ -178,15 +184,17 @@ class scope:
         return False
 
 
-def backward(loss: torch.Tensor, split: Optional[torch.Tensor] = None
+def backward(loss: torch.Tensor,
+             split: Union[None, torch.Tensor, Sequence[torch.Tensor]] = None
              ) -> None:
     """`loss.backward()`, spanned while a profiler is on.
 
-    With `split`, `loss.backward` runs from the start of the backward (a
-    hook on `loss`) to the moment the gradient of `split` is complete (a
-    hook on `split`), and `model.backward` from there to the backward's end
-    (a callback of the autograd engine), all on the thread that runs the
-    backward.  The hooks are installed only while a profiler is on."""
+    With `split` (a tensor or a sequence of them), `loss.backward` runs
+    from the start of the backward (a hook on `loss`) to the moment the
+    gradients of all of `split` are complete (a hook on each), and
+    `model.backward` from there to the backward's end (a callback of the
+    autograd engine), all on the thread that runs the backward.  The hooks
+    are installed only while a profiler is on."""
     if not _profiler_enabled():
         loss.backward()
         return
@@ -194,7 +202,9 @@ def backward(loss: torch.Tensor, split: Optional[torch.Tensor] = None
         with scope("step.backward"):
             loss.backward()
         return
+    splits = [split] if torch.is_tensor(split) else list(split)
     first, second = scope("loss.backward"), scope("model.backward")
+    waiting = [len(splits)]
 
     def open_first(_grad):
         first.__enter__()
@@ -203,14 +213,18 @@ def backward(loss: torch.Tensor, split: Optional[torch.Tensor] = None
         second.__exit__(None, None, None)
 
     def split_here(_grad):
+        waiting[0] -= 1
+        if waiting[0]:
+            return
         first.__exit__(None, None, None)
         second.__enter__()
         torch.autograd.Variable._execution_engine.queue_callback(close_second)
 
     loss.register_hook(open_first)
-    split.register_hook(split_here)
+    for t in splits:
+        t.register_hook(split_here)
     loss.backward()
-    first.__exit__(None, None, None)     # `split` took no gradient
+    first.__exit__(None, None, None)     # some of `split` took no gradient
 
 
 def count(name: str, n: int = 1) -> None:

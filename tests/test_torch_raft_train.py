@@ -67,18 +67,36 @@ def capturing(inner):
     return optax.GradientTransformation(init, update)
 
 
-@pytest.fixture(scope="module")
-def variables():
+# The model over events and the two boundary frames (E+I), its frame
+# volume at two levels after the two event targets.
+IMAGES = dict(use_boundary_images=True, img_levels=2)
+
+
+def make_variables(**kw):
     """Weights of the tiny model (any iteration count: the parameters do
     not depend on it) for both sides: the port's seeded init carried into
     the JAX tree by the JAX package's converter (the tree's structure from
     jax.eval_shape of the JAX init, which compiles nothing), then biases
     and BatchNorm statistics randomized."""
-    template = jax.eval_shape(lambda: JaxRAFT(tiny_cfg(remat_iters=False)).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 7, H, W)), test_mode=True))
-    port = trs.create_raft_model(RAFTSplineConfig(**SMALL), "cpu")
+    images = ([jnp.zeros((1, 3, H, W))] * 2
+              if kw.get("use_boundary_images") else None)
+    template = jax.eval_shape(lambda: JaxRAFT(
+        tiny_cfg(remat_iters=False, **kw)).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 7, H, W)), images,
+            test_mode=True))
+    port = trs.create_raft_model(RAFTSplineConfig(**SMALL, **kw), "cpu")
     return _randomized(torch_raft_spline_to_flax(
         {k: v.numpy() for k, v in port.state_dict().items()}, template))
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return make_variables()
+
+
+@pytest.fixture(scope="module")
+def ei_variables():
+    return make_variables(**IMAGES)
 
 
 def jax_state(variables, iters=2, **kw):
@@ -118,14 +136,20 @@ def selfsup_batch(seed, b=2, n=1500, capacity=2048):
                                   lut_cell_sort_params=((H, W), 5, 4))
 
 
-def supervised_batch(seed, b=2, steps=3):
+def supervised_batch(seed, b=2, steps=3, images=False):
+    """With `images`, 'img' [B, 2, 3, H, W] holds the two boundary frames
+    as the port's loader stacks them (integer values 0..255)."""
     rng = np.random.default_rng(seed)
-    return {"ev_repr": rng.normal(size=(b, 7, H, W)).astype(np.float32),
-            "flow": rng.normal(scale=2.0, size=(b, steps, 2, H, W)).astype(
-                np.float32),
-            "flow_timestamps": np.broadcast_to(np.linspace(
-                0, 1, steps + 1)[1:].astype(np.float32), (b, steps)).copy(),
-            "flow_valid": rng.uniform(size=(b, steps, H, W)) > 0.2}
+    batch = {"ev_repr": rng.normal(size=(b, 7, H, W)).astype(np.float32),
+             "flow": rng.normal(scale=2.0, size=(b, steps, 2, H, W)).astype(
+                 np.float32),
+             "flow_timestamps": np.broadcast_to(np.linspace(
+                 0, 1, steps + 1)[1:].astype(np.float32), (b, steps)).copy(),
+             "flow_valid": rng.uniform(size=(b, steps, H, W)) > 0.2}
+    if images:
+        batch["img"] = rng.integers(0, 256, (b, 2, 3, H, W)).astype(
+            np.float32)
+    return batch
 
 
 def compare_step(new_jstate, state, before):
@@ -217,15 +241,23 @@ def test_raft_train_step_matches_jax(variables, jax_selfsup, mode):
     compare_step(new_jstate, state, before)
 
 
-def test_raft_supervised_train_step_matches_jax(variables):
-    cfg, jstate = jax_state(variables)
-    batch = supervised_batch(2)
+@pytest.mark.parametrize("images", [False, True], ids=["events", "e+i"])
+def test_raft_supervised_train_step_matches_jax(request, images):
+    """With images, the JAX step takes the frames as its pair of
+    [B, 3, H, W] and the port as the loader's stacked 'img'; the gradients
+    then cover fnet_img and the frame volume's lookups."""
+    kw = IMAGES if images else {}
+    variables = request.getfixturevalue(
+        "ei_variables" if images else "variables")
+    cfg, jstate = jax_state(variables, **kw)
+    batch = supervised_batch(2, images=images)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if images:
+        jbatch["img"] = [jbatch["img"][:, 0], jbatch["img"][:, 1]]
     step = jax.jit(functools.partial(jrs.raft_supervised_train_step, cfg=cfg,
                                      gamma=0.8))
-    new_jstate, jlogs = step(jstate, {k: jnp.asarray(v)
-                                      for k, v in batch.items()},
-                             jax.random.PRNGKey(0))
-    state = port_state(variables)
+    new_jstate, jlogs = step(jstate, jbatch, jax.random.PRNGKey(0))
+    state = port_state(variables, **kw)
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     logs = trs.raft_supervised_train_step(
         state, to_device(batch, torch.device("cpu")), gamma=0.8)

@@ -3,6 +3,7 @@ profiled flow step on the card.
 
   * each entry point the benchmark drives (the flow train_step with the
     host or the device voxel grid, raft_train_step with and without gamma,
+    raft_supervised_train_step with and without boundary frames,
     raft_validation_step after stack_traj_batch, to_device) opens the
     documented spans under torch.profiler, each nested in its documented
     parent, and the registry counts them with the step they belong to;
@@ -12,8 +13,9 @@ profiled flow step on the card.
     RecordFunction, and the registry's span totals stay empty;
   * the backward split fires once per step, after the loss's backward ops
     and before the model's;
-  * the counters: host-to-device bytes of a known batch, the wrappers'
-    `.launches` in the snapshot, reset.
+  * the counters: host-to-device bytes of a known batch, the correlation
+    windows of a known model, the wrappers' `.launches` in the snapshot,
+    reset.
 
 No JAX here: the card test runs with `--noconftest` on the GPU machine.
 """
@@ -27,7 +29,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from motionpriorcmax_tpu_torch.cli.main import stack_traj_batch
-from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
+from motionpriorcmax_tpu_torch.data.collate import (collate_fixed_capacity,
+                                                    stack_samples)
 from motionpriorcmax_tpu_torch.data.host_ops import voxelize_normalized_host
 from motionpriorcmax_tpu_torch.losses import FocusLossConfig
 from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
@@ -45,7 +48,8 @@ RAFT = dict(nbins_context=5, nbins_correlation=3, bezier_degree=2,
 RAFT_LOSS = dict(image_shape=(RH, RW), num_bins=5, num_knn=4)
 SPANS = ("batch.stack", "batch.h2d", "batch.to_device", "step.train",
          "step.eval", "step.voxelize", "step.optimizer", "step.backward",
-         "model.forward", "model.encode", "model.corr_pyramid",
+         "model.forward", "model.encode", "model.encode_images",
+         "model.corr_pyramid",
          "model.update", "model.backward", "loss.forward", "loss.interpolate",
          "loss.knn", "loss.warp", "loss.vote", "loss.objective",
          "loss.smooth", "loss.backward")
@@ -164,6 +168,24 @@ def raft_step(gamma, steps=1):
     return run
 
 
+def raft_supervised(images, steps=1):
+    cfg = RAFTSplineConfig(**RAFT, use_boundary_images=images, img_levels=2)
+    state = trs.create_raft_train_state(cfg, trs.RAFTTrainConfig(), "cpu")
+    samples = traj_samples(9)
+    rng = np.random.default_rng(10)
+    for s in samples:
+        del s["flow_valid"]
+        s["flow_timestamps"] = np.float32([1 / 3, 2 / 3, 1.0])
+        if images:
+            s["img"] = rng.integers(0, 256, (2, 3, RH, RW)).astype(np.float32)
+    host = stack_samples(samples)
+
+    def run():
+        for _ in range(steps):
+            trs.raft_supervised_train_step(state, to_device(host, "cpu"))
+    return run
+
+
 def raft_eval():
     model = trs.create_raft_model(RAFTSplineConfig(**RAFT), "cpu")
     samples = traj_samples(5)
@@ -199,6 +221,11 @@ CASES = {
     "raft_train_gamma": (lambda: raft_step(0.8),
                          {**TRAIN, **FOCUS, **KNN, **RAFT_MODEL,
                           "step.backward": "step.train"}),
+    "raft_supervised": (lambda: raft_supervised(False),
+                        {**TRAIN, **SPLIT, **RAFT_MODEL}),
+    "raft_supervised_images": (lambda: raft_supervised(True),
+                               {**TRAIN, **SPLIT, **RAFT_MODEL,
+                                "model.encode_images": "model.encode"}),
     "raft_eval": (raft_eval, {"batch.stack": None, "batch.h2d": None,
                               "step.eval": None,
                               "model.forward": "step.eval", **RAFT_MODEL}),
@@ -296,10 +323,14 @@ def test_scope_off_makes_one_check_and_records_nothing(monkeypatch):
     assert "step.eval" in made and profiling.snapshot()["spans"]
 
 
-@pytest.mark.parametrize("case", ["flow", "raft"])
+@pytest.mark.parametrize("case", ["flow", "raft", "raft_supervised"])
 def test_backward_split_once_per_step_between_loss_and_model(case):
-    run = flow_step(False, steps=2) if case == "flow" else raft_step(
-        None, steps=2)
+    # The supervised step splits at two tensors, every iteration's
+    # parameters and upsampling masks: the model's part starts once both
+    # have their gradients.
+    run = {"flow": lambda: flow_step(False, steps=2),
+           "raft": lambda: raft_step(None, steps=2),
+           "raft_supervised": lambda: raft_supervised(True, steps=2)}[case]()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run()
     spans = profiling.snapshot()["spans"]
@@ -350,6 +381,17 @@ def test_h2d_bytes_of_a_known_batch():
     profiling.count_h2d(Pinned(), "cuda")
     profiling.count_h2d(Pinned(), torch.device("cpu"))
     assert profiling.snapshot()["counters"]["h2d.pinned_bytes"] == 1000
+
+
+def test_corr_windows_counted_per_lookup():
+    # Levels (1, 2) of the event targets and 2 of the frame target: 3
+    # targets at level 1, 2 at level 2, each over B x h/8 x w/8 queries,
+    # once per iteration.
+    raft_supervised(True)()
+    counters = profiling.snapshot()["counters"]
+    per_lookup = (3 + 2) * 2 * (RH // 8) * (RW // 8)
+    assert counters["corr.windows"] == per_lookup * RAFT["iters"]
+    assert counters["steps.train"] == 1
 
 
 def test_steps_and_requests_counted_with_the_profiler_off():
