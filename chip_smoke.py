@@ -243,6 +243,15 @@ Phases, one or more lines each; any failure exits non-zero:
      on each database, beside its bound (5 f32 operations per pair at the
      maximum SM clock) and the plain version's, which is knn_blocked
      before the kernel (distance blocks, torch.topk)
+ 49. flax's BatchNorm (+ ReLU) kernels (csrc/flax_batch_norm.cu) at the
+     UNet's norm shapes at B=14 (bf16) and the RAFT context encoder's at
+     B=6 (f32): the elementwise passes against their plain versions bit
+     for bit, the sums to 1e-5 of their scale, the same bits in two calls;
+     the time of one norm's train-mode forward and backward (CUDA events,
+     L2 flushed): the four launches, the whole norm, its byte bound, the
+     plain versions, and F.batch_norm + F.relu (cuDNN, the library
+     yardstick, never called by the port); the sums over the UNet's 18
+     norms of one step
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -1690,21 +1699,37 @@ def edge_events(b, m, h, w, ty, tx, seed):
 
 FLOW_KERNELS = ("iwe_vote_fwd", "iwe_vote_bwd", "lut_gather_fwd",
                 "lut_segsum_bwd")
+# The BatchNorms (ops/cuda/flax_batch_norm.py) of the UNet (18, each with
+# its ReLU fused) and of RAFT-Spline's context encoder (15; the feature
+# encoders' norms are instance norms).
+UNET_NORMS, RAFT_NORMS = 18, 15
+
+
+def bn_launches(norms, train):
+    """Launches of `norms` BatchNorms: in train mode 2 + 2 reduce launches
+    (the forward's sums, the backward's) and 1 + 1 apply launches each, in
+    eval mode 1 apply launch each."""
+    return {"flax_bn_reduce": 4 * norms if train else 0,
+            "flax_bn_apply": (2 if train else 1) * norms}
+
+
 SOFTMAX_KERNELS = ("softmax_interp_fwd", "softmax_interp_bwd", "voxel_vote")
 # Launches per train step and in the val pass (one batch) of the two
 # flow-train paths; the exact KNN's kernel once per focus loss.
 EXACT_STEP = {"iwe_vote_fwd": 2, "iwe_vote_bwd": 2, "lut_gather_fwd": 1,
               "lut_segsum_bwd": 1, "softmax_interp_fwd": 0,
               "softmax_interp_bwd": 0, "voxel_vote": 0,
-              "grid_segment_sum": 0, "knn_topk": 1}
-EXACT_VAL = {**EXACT_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0}
+              "grid_segment_sum": 0, "knn_topk": 1,
+              **bn_launches(UNET_NORMS, True)}
+EXACT_VAL = {**EXACT_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0,
+             **bn_launches(UNET_NORMS, False)}
 # knn_method grid: the window KNN, plain PyTorch, in place of the kernel.
 GRID_STEP = {**EXACT_STEP, "knn_topk": 0}
 GRID_VAL = {**EXACT_VAL, "knn_topk": 0}
 SOFTMAX_STEP = {**EXACT_STEP, "softmax_interp_fwd": 1,
                 "softmax_interp_bwd": 1, "voxel_vote": 1, "knn_topk": 0}
 SOFTMAX_VAL = {**SOFTMAX_STEP, "iwe_vote_bwd": 0, "lut_segsum_bwd": 0,
-               "softmax_interp_bwd": 0}
+               "softmax_interp_bwd": 0, **bn_launches(UNET_NORMS, False)}
 # The softmax / device-voxel step on unsorted events: no LUT-gather kernels
 # (row 6), the any-order segment sum (row 5) in their place, and the vote
 # (row 4) and voxel vote (row 8) on events in any order.
@@ -1714,6 +1739,7 @@ UNSORTED_VAL = {**SOFTMAX_VAL, "lut_gather_fwd": 0}
 
 
 def kernel_wrappers():
+    from motionpriorcmax_tpu_torch.ops.cuda import flax_batch_norm as fbn
     from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
     from motionpriorcmax_tpu_torch.ops.cuda import knn_topk as kt
     from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
@@ -1728,7 +1754,9 @@ def kernel_wrappers():
            "softmax_interp_bwd": si.softmax_interp_bwd,
            "voxel_vote": vv.voxel_vote,
            "grid_segment_sum": ss.grid_segment_sum,
-           "knn_topk": kt.knn_topk}
+           "knn_topk": kt.knn_topk,
+           "flax_bn_reduce": fbn.flax_bn_reduce,
+           "flax_bn_apply": fbn.flax_bn_apply}
     return fns
 
 
@@ -1978,6 +2006,7 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
         del batch["voxel"]
     times = torch.cat([torch.tensor([0.37]),
                        (torch.arange(nb) + 0.5) / nb]).float()
+    want = {**want, **bn_launches(UNET_NORMS, True)}
     fns = kernel_wrappers()
     before = {k: f.launches for k, f in fns.items()}
     results = {}
@@ -2074,11 +2103,13 @@ CORR_KERNELS = ("corr_window_lookup", "corr_window_lookup_bwd")
 # traj-train paths: 12 iterations, one forward launch for all 4 pyramid
 # levels and one backward launch per level.
 TRAJ_STEP = {"corr_window_lookup": 12, "corr_window_lookup_bwd": 48,
-             **EXACT_STEP}
-TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 12}
+             **EXACT_STEP, **bn_launches(RAFT_NORMS, True)}
+TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 12,
+            **bn_launches(RAFT_NORMS, False)}
 TRAJ_SOFTMAX_STEP = {**TRAJ_STEP, "softmax_interp_fwd": 1,
                      "softmax_interp_bwd": 1, "knn_topk": 0}
-TRAJ_SUPERVISED_STEP = {**TRAJ_VAL, "corr_window_lookup_bwd": 48}
+TRAJ_SUPERVISED_STEP = {**TRAJ_VAL, "corr_window_lookup_bwd": 48,
+                        **bn_launches(RAFT_NORMS, True)}
 
 
 def traj_wrappers():
@@ -2704,10 +2735,11 @@ def phase_traj_card_vs_cpu(torch):
              {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels, "iwe_vote_fwd": 2,
               "iwe_vote_bwd": 2, "lut_gather_fwd": 1, "lut_segsum_bwd": 1,
-              "knn_topk": 1}),
+              "knn_topk": 1, **bn_launches(RAFT_NORMS, True)}),
             ("raft_supervised_train_step", supervised,
              {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
-              "corr_window_lookup_bwd": levels})):
+              "corr_window_lookup_bwd": levels,
+              **bn_launches(RAFT_NORMS, True)})):
         results = {}
         before = {k: f.launches for k, f in fns.items()}
         for dev in ("cpu", "cuda"):
@@ -3264,7 +3296,7 @@ BENCHMARK_WINDOWS = 416
 INFER_OUT_BIAS = 48.0
 INFER_STEP = {**EXACT_STEP, "iwe_vote_fwd": 0, "iwe_vote_bwd": 0,
               "lut_gather_fwd": 0, "lut_segsum_bwd": 0, "voxel_vote": 1,
-              "knn_topk": 0}
+              "knn_topk": 0, **bn_launches(UNET_NORMS, False)}
 
 
 def infer_vote_events(torch, n, seed, h=480, w=640, nb=15):
@@ -3711,11 +3743,13 @@ PANEL_IMAGES = ("0_unwarped", "1_gt_iwe", "2_iwe", "3_gt_flow", "4_flow")
 # Launches per render of one sample (the unwarped image's vote, the eval
 # step's two polarity halves and its LUT gather, the GT IWE's two halves
 # on events in collate order, one exact KNN for the step and one for the
-# GT IWE), and with knn_method softmax and the voxel grid voted in the
+# GT IWE, the UNet's eval-mode norms in the step and in the predicted
+# flow), and with knn_method softmax and the voxel grid voted in the
 # render (one softmax forward for the step and one for the GT IWE, one
 # voxel vote for both the step and the predicted flow).
 RENDER_EXACT = {**{k: 0 for k in EXACT_STEP}, "iwe_vote_fwd": 5,
-                "lut_gather_fwd": 1, "knn_topk": 2}
+                "lut_gather_fwd": 1, "knn_topk": 2,
+                "flax_bn_apply": 2 * UNET_NORMS}
 RENDER_SOFTMAX = {**RENDER_EXACT, "softmax_interp_fwd": 2, "voxel_vote": 1,
                   "knn_topk": 0}
 # Card vs CPU render at the test geometry: each image against its CPU
@@ -4640,6 +4674,193 @@ def phase_knn_topk(torch):
             torch.cuda.empty_cache()
     return out
 
+
+# Phase 49's shapes, as (label, B, C, (H, W), dtype, ReLU fused, norms of
+# the path at that shape): the UNet's 18 at B=14, 480x640 (dsec.yaml) and
+# RAFT-Spline's 15 context-encoder norms at B=6, 384x512 (Tab2L5).
+FLAX_BN_SHAPES = (
+    ("unet-64", 14, 64, (480, 640), "bfloat16", True, 4),
+    ("unet-128", 14, 128, (240, 320), "bfloat16", True, 4),
+    ("unet-256", 14, 256, (120, 160), "bfloat16", True, 4),
+    ("unet-512", 14, 512, (60, 80), "bfloat16", True, 4),
+    ("unet-1024", 14, 1024, (30, 40), "bfloat16", True, 2),
+    ("raft-64", 6, 64, (192, 256), "float32", False, 5),
+    ("raft-96", 6, 96, (96, 128), "float32", False, 5),
+    ("raft-128", 6, 128, (48, 64), "float32", False, 5),
+)
+TOL_FLAX_BN_SUMS = 1e-5         # of the sum of |terms| per channel
+
+
+def flax_bn_inputs(torch, b, c, hw, dtype, seed):
+    """x and a cotangent [B, C, H, W] on the card, about half of each
+    channel below its mean, and the kernels' coefficients: [3, C] (mean,
+    mul, bias) and [5, C] (and gmean, k)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, c, *hw)
+    mean = torch.linspace(-1.0, 2.0, c, device="cuda")
+    x = (torch.randn(shape, generator=g, device="cuda") * 1.3
+         + mean[:, None, None])
+    dy = torch.randn(shape, generator=g, device="cuda")
+    mul = 1.0 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+    gmean = 0.01 * torch.randn(c, generator=g, device="cuda")
+    k = 0.01 * torch.randn(c, generator=g, device="cuda")
+    return (x.to(dtype), dy.to(dtype), torch.stack([mean, mul, bias]),
+            torch.stack([mean, mul, bias, gmean, k]))
+
+
+def flax_bn_sums_scale(torch, x, dy=None, coef=None):
+    """[2, C] f64 sums of |terms| of flax_bn_reduce's two sums, the scale
+    of their rounding."""
+    xf = x.double()
+    if dy is None:
+        return torch.stack([xf.abs().sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+    d = (xf - coef[0, :, None, None].double()).abs()
+    g = dy.double().abs()
+    return torch.stack([g.sum((0, 2, 3)), (g * d).sum((0, 2, 3))])
+
+
+def flax_bn_check(torch, x, dy, coef3, coef5, relu):
+    """Each launch against its plain version on the card: the elementwise
+    passes bit for bit, the sums to TOL_FLAX_BN_SUMS of their scale; every
+    launch's bits the same in a second call.  Returns the sums' worst
+    relative error."""
+    from motionpriorcmax_tpu_torch.ops.cuda import flax_batch_norm as fbn
+
+    for args in ((x, coef3, relu), (x, coef5, relu, dy)):
+        got, again = fbn.flax_bn_apply(*args), fbn.flax_bn_apply(*args)
+        if not torch.equal(got, again):
+            raise AssertionError("two apply calls gave other bits")
+        want = fbn.apply_plain(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"apply differs from plain by "
+                f"{float((got.float() - want.float()).abs().max()):.3e}")
+    worst = 0.0
+    for args in ((x,), (x, dy, coef3, relu)):
+        got, again = fbn.flax_bn_reduce(*args), fbn.flax_bn_reduce(*args)
+        if not torch.equal(got, again):
+            raise AssertionError("two reduce calls gave other bits")
+        want = fbn.reduce_plain(*args).double()
+        scale = flax_bn_sums_scale(torch, *args[:3]).clamp_min(1.0)
+        err = float(((got.double() - want).abs() / scale).max())
+        if not err <= TOL_FLAX_BN_SUMS:
+            raise AssertionError(f"sums differ from plain by {err:.3e} of "
+                                 f"their scale")
+        worst = max(worst, err)
+    return worst
+
+
+def flax_bn_calls(torch, x, dy, coef3, coef5, relu):
+    """The timed calls of one norm's train-mode forward and backward:
+    'kernels' the four launching calls alone (coefficients given),
+    'norm' the whole Function (its C-length statistics included), 'plain'
+    the four calls' plain versions on the card, 'library' F.batch_norm
+    (cuDNN) + F.relu, forward and backward (never called by the port)."""
+    import torch.nn.functional as F
+
+    from motionpriorcmax_tpu_torch.ops.cuda import flax_batch_norm as fbn
+
+    c = x.shape[1]
+    weight = torch.ones(c, device="cuda", requires_grad=True)
+    bias = torch.zeros(c, device="cuda", requires_grad=True)
+    rm = torch.zeros(c, device="cuda")
+    rv = torch.ones(c, device="cuda")
+    xr = x.detach().clone().requires_grad_(True)
+
+    def kernels():
+        fbn.flax_bn_reduce(x)
+        fbn.flax_bn_apply(x, coef3, relu)
+        fbn.flax_bn_reduce(x, dy, coef3, relu)
+        fbn.flax_bn_apply(x, coef5, relu, dy)
+
+    def plain():
+        fbn.reduce_plain(x)
+        fbn.apply_plain(x, coef3, relu)
+        fbn.reduce_plain(x, dy, coef3, relu)
+        fbn.apply_plain(x, coef5, relu, dy)
+
+    def norm():
+        xr.grad = weight.grad = bias.grad = None
+        fbn.flax_batch_norm(xr, weight, bias, rm, rv, True, 0.1, 1e-5, None,
+                            relu).backward(dy)
+
+    def library():
+        xr.grad = weight.grad = bias.grad = None
+        y = F.batch_norm(xr, rm, rv, weight, bias, True, 0.1, 1e-5)
+        (F.relu(y) if relu else y).backward(dy)
+
+    return {"kernels": kernels, "norm": norm, "plain": plain,
+            "library": library}
+
+
+def flax_bn_bytes(x):
+    """(bound bytes, two-pass bytes) of one norm's forward and backward:
+    x read and y written, then x and dy read and dx written, each once;
+    and what the kernels' two passes each way move (the sums' reads
+    besides)."""
+    n = x.numel() * x.element_size()
+    return 5 * n, 8 * n
+
+
+def phase_flax_bn(torch):
+    """Phase 49: the BatchNorm kernels at FLAX_BN_SHAPES, held to their
+    plain versions (flax_bn_check), and one norm's train-mode forward and
+    backward timed (CUDA events, L2 flushed; `card_ms`: the card's time
+    alone) beside its byte bound, the plain versions and F.batch_norm +
+    F.relu; the sums over the UNet's 18 norms of one step."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out, unet = {}, {}
+    for label, b, c, hw, dname, relu, count in FLAX_BN_SHAPES:
+        dtype = getattr(torch, dname)
+        x, dy, coef3, coef5 = flax_bn_inputs(torch, b, c, hw, dtype, c)
+        try:
+            err = flax_bn_check(torch, x, dy, coef3, coef5, relu)
+        except AssertionError as e:
+            fail(f"[flax-bn] {label}: {e}")
+        calls = flax_bn_calls(torch, x, dy, coef3, coef5, relu)
+        res = {"sums_rel_err": err}
+        for name, fn in calls.items():
+            fast = name in ("kernels", "norm")
+            res[f"{name}_ms"] = time_ms(torch, fn, flush,
+                                        reps=20 if fast else 5,
+                                        warmup=3 if fast else 1)
+            if fast:
+                res[f"{name}_card_ms"] = time_ms(torch, fn, flush, card=True)
+        bound, two_pass = flax_bn_bytes(x)
+        res["bound_ms"] = bound / H100_BYTES_PER_S * 1e3
+        res["two_pass_ms"] = two_pass / H100_BYTES_PER_S * 1e3
+        print(f"[flax-bn] {label}: B={b} C={c} {hw[0]}x{hw[1]} {dname}"
+              f"{' + ReLU' if relu else ''} ({count} in the path), forward "
+              f"+ backward: kernels {res['kernels_ms'] * 1e3:.1f} us (card "
+              f"{res['kernels_card_ms'] * 1e3:.1f}), the whole norm "
+              f"{res['norm_ms'] * 1e3:.1f} us (card "
+              f"{res['norm_card_ms'] * 1e3:.1f}), bound "
+              f"{res['bound_ms'] * 1e3:.1f} us (bytes, each once; the two "
+              f"passes' {res['two_pass_ms'] * 1e3:.1f}), plain "
+              f"{res['plain_ms'] * 1e3:.1f} us, F.batch_norm + relu "
+              f"{res['library_ms'] * 1e3:.1f} us; sums {err:.2e} of their "
+              f"scale, elementwise passes bit for bit, two calls the same "
+              f"bits")
+        out[label] = res
+        if label.startswith("unet"):
+            for k, v in res.items():
+                if k.endswith("_ms"):
+                    unet[k] = unet.get(k, 0.0) + count * v
+        del x, dy, coef3, coef5, calls
+        torch.cuda.empty_cache()
+    if sum(s[-1] for s in FLAX_BN_SHAPES if s[0].startswith("unet")) \
+            != UNET_NORMS:
+        fail("FLAX_BN_SHAPES does not hold the UNet's 18 norms")
+    print(f"[flax-bn] the UNet's {UNET_NORMS} norms of one B=14 step, forward "
+          f"+ backward: kernels {unet['kernels_card_ms']:.2f} ms (card), "
+          f"the whole norms {unet['norm_card_ms']:.2f} ms (card), bound "
+          f"{unet['bound_ms']:.2f} ms (two passes "
+          f"{unet['two_pass_ms']:.2f}), plain {unet['plain_ms']:.2f} ms, "
+          f"F.batch_norm + relu {unet['library_ms']:.2f} ms")
+    out["unet_step"] = unet
+    return out
+
 FLOW_SOURCES = {
     "iwe_vote_fwd": ("motionpriorcmax_tpu_torch/csrc/iwe_vote.cu",
                      "motionpriorcmax_tpu/ops/pallas/iwe_vote.py:398"),
@@ -4921,8 +5142,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tree16 = {**TAB2L5_CONFIG, "model": {**TAB2L5_CONFIG["model"],
                                          **BF16_RAFT}}
-    traj16_launches = phase_traj_train(torch, tree16, selfsup, val_samples,
-                                       smi_line, TRAJ_STEP, "traj-train-bf16")
+    traj16_launches = phase_traj_train(
+        torch, tree16, selfsup, val_samples, smi_line,
+        {**TRAJ_STEP, **bn_launches(RAFT_NORMS, True)}, "traj-train-bf16")
     del val_samples
     torch.cuda.empty_cache()
     # A train-mode forward of the step's model on its batch, not timed: the
@@ -4960,6 +5182,9 @@ def main() -> int:
     # The exact KNN's fused kernel (phase 48)
     torch.cuda.empty_cache()
     knn_numbers = phase_knn_topk(torch)
+    # The BatchNorm kernels (phase 49)
+    torch.cuda.empty_cache()
+    bn_numbers = phase_flax_bn(torch)
     # Row 1 in the bf16 requests (phase 40): launches per request (the warm-up
     # included) and the kernel on their bf16 pyramid.
     kernels[0]["bf16_compute"] = {"request_launches": bf16_launches / 4,
@@ -5027,6 +5252,23 @@ def main() -> int:
                 "times as large; bound: 5 f32 operations per pair at the "
                 "maximum SM clock; plain and library: knn_blocked before "
                 "the kernel, distance blocks and torch.topk)"})
+    kernels.append({
+        "name": "flax_batch_norm", "route": "cuda",
+        "source": "motionpriorcmax_tpu_torch/csrc/flax_batch_norm.cu",
+        "replaces": "none: the JAX package leaves the norm to XLA's fusion",
+        "launches": {k: flow_launches[k] for k in bn_launches(0, True)},
+        "traj_train_launches": {k: traj_launches[k]
+                                for k in bn_launches(0, True)},
+        "panel_render_launches": render_launches.get("flax_bn_apply", 0),
+        **bn_numbers["unet_step"],
+        "shapes": {k: v for k, v in bn_numbers.items() if k != "unet_step"},
+        "work": "one train-mode forward and backward of the UNet's 18 norms "
+                "+ ReLU at B=14, 480x640, bf16 (shapes: each shape of the "
+                "UNet's and of RAFT-Spline's context encoder at B=6, f32, "
+                "once; kernels: the four launching calls, norm: the whole "
+                "Function; bound: x, y, dy, dx each once at 3.35 TB/s, "
+                "two_pass: the kernels' passes; library: F.batch_norm + "
+                "F.relu, cuDNN)"})
 
     for entry in kernels:
         # Phases 43-45: launches per step of each rank on the sharded paths

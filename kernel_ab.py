@@ -2,8 +2,10 @@
 under the same timers, in one call: the corr-window lookup (kernel row 1),
 the voxel vote (kernel row 8), the IWE vote's forward and backward (rows 3
 and 4), the LUT gather's two backwards (rows 6 and 5), the softmax
-interpolation (row 7) and the exact KNN (`knn_blocked`: the fused distance +
-top-K kernel, or distance blocks and torch.topk before it).
+interpolation (row 7), the exact KNN (`knn_blocked`: the fused distance +
+top-K kernel, or distance blocks and torch.topk before it) and flax's
+BatchNorm (+ ReLU) layer (its kernels, or the f32 PyTorch chain before
+them).
 
     python3 kernel_ab.py parent=path/to/other/checkout change=. \
         --order parent,change,change,parent
@@ -76,7 +78,16 @@ each call, these sections:
                the fused kernel (csrc/knn_topk.cu) runs distance blocks
                and torch.topk there, the yardstick; "digest" of the
                indices and distances (the two ways may break ties at the
-               K-th value differently).
+               K-th value differently);
+  flax_bn      one train-mode forward and backward of
+               `models/norm.py::FlaxBatchNorm2d` as the checkout has it
+               (the ReLU fused where it takes `relu`, else nn.ReLU after
+               it) at chip_smoke.py's FLAX_BN_SHAPES (each of the UNet's
+               norm shapes at B=14, bf16, and of RAFT-Spline's context
+               encoder at B=6, f32), and "unet_step", the sums over the
+               UNet's 18 norms of one B=14 step; a checkout before the
+               kernels (csrc/flax_batch_norm.cu) runs the f32 PyTorch
+               chain and autograd there.
 
 `--sections softmax,lookup` runs only those sections (default: all).
 
@@ -115,10 +126,12 @@ import time
 
 import functools
 
-from chip_smoke import (BATCH, H, HOST_COVER_CYCLES, KNN_K, KNN_PATHS,
-                        KNN_VARIANTS, LEVELS, Q, RADIUS, TOL_SEGMENT_SUM,
+from chip_smoke import (BATCH, FLAX_BN_SHAPES, H, HOST_COVER_CYCLES, KNN_K,
+                        KNN_PATHS, KNN_VARIANTS, LEVELS, Q, RADIUS,
+                        TOL_SEGMENT_SUM,
                         TOL_SEGSUM, TOL_SOFTMAX, TOL_VOTE_BWD, TOL_VOTE_FWD,
-                        W, knn_case, level_inputs, nvidia_smi_line,
+                        W, flax_bn_inputs, knn_case, level_inputs,
+                        nvidia_smi_line,
                         segment_sum_cases, segsum_cases,
                         softmax_cases,
                         softmax_loss_cfgs, vote_band_share, vote_batch,
@@ -488,11 +501,49 @@ def staging() -> None:
     print(json.dumps(res), flush=True)
 
 
+def run_flax_bn(torch, flush):
+    """FlaxBatchNorm2d's train-mode forward and backward at FLAX_BN_SHAPES,
+    in the checkout's form, and their sums over the UNet's 18 norms."""
+    import inspect
+
+    from torch import nn
+
+    from motionpriorcmax_tpu_torch.models.norm import FlaxBatchNorm2d
+
+    fuses = "relu" in inspect.signature(FlaxBatchNorm2d).parameters
+    out, step = {}, {"ms": 0.0, "card_ms": 0.0, "host_us": 0.0}
+    for label, b, c, hw, dname, relu, count in FLAX_BN_SHAPES:
+        x, dy, _, _ = flax_bn_inputs(torch, b, c, hw, getattr(torch, dname),
+                                     c)
+        if relu and not fuses:
+            layer = nn.Sequential(FlaxBatchNorm2d(c), nn.ReLU())
+        else:
+            layer = FlaxBatchNorm2d(c, relu=True) if relu else \
+                FlaxBatchNorm2d(c)
+        layer = layer.cuda().train()
+        xr = x.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            xr.grad = None
+            layer.zero_grad(set_to_none=True)
+            layer(xr).backward(dy)
+
+        ms, card_ms, host_us = timers(torch, fwd_bwd, flush)
+        out[label] = {"ms": ms, "card_ms": card_ms, "host_us": host_us}
+        if label.startswith("unet"):
+            for k in step:
+                step[k] += count * out[label][k]
+        del x, dy, xr, layer
+        torch.cuda.empty_cache()
+    out["unet_step"] = step
+    return out
+
+
 SECTIONS = {"lookup": run_lookup, "voxel_vote": run_vote,
             "iwe_vote": run_iwe_vote, "iwe_vote_bwd": run_iwe_vote_bwd,
             "segsum": run_segsum,
             "segment_sum": run_segment_sum, "softmax": run_softmax,
-            "knn": run_knn}
+            "knn": run_knn, "flax_bn": run_flax_bn}
 # The cases of each section, in the order of the table.
 CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
          "iwe_vote": ("sorted", "unsorted", "skewed", "wide"),
@@ -501,7 +552,8 @@ CASES = {"voxel_vote": ("sorted", "unsorted", "skewed"),
          "segsum": ("sorted", "skewed", "traj"),
          "segment_sum": ("path", "skewed", "traj"),
          "knn": tuple(f"{p[0]}_{v[0]}" for p in KNN_PATHS
-                      for v in KNN_VARIANTS)}
+                      for v in KNN_VARIANTS),
+         "flax_bn": tuple(s[0] for s in FLAX_BN_SHAPES) + ("unet_step",)}
 
 
 def worker(label: str, tree: str, sections: str) -> None:

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.cuda.flax_batch_norm import flax_batch_norm
+
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d's parameters and state-dict names with flax's math.
@@ -23,44 +25,29 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     f32; running = (1 - momentum) * running + momentum * batch statistic,
     biased variance included.  Eval mode uses the running statistics.
     y = (x - mean) * (rsqrt(var + eps) * weight) + bias in f32, cast back
-    to the input's dtype.
+    to the input's dtype, then ReLU where `relu` (the caller's ReLU fused).
+    The arithmetic and its closed-form backward are
+    ops/cuda/flax_batch_norm.py's: CUDA kernels on the card, their plain
+    versions on the CPU.
 
     `stats_sum` (set by parallel.sync_batch_norm, None otherwise) sums a
     tensor over the ranks that share the batch: the train-mode statistics
     are then those of the global batch, from the group sums of sum(x),
-    sum(x^2) and the element count.
+    sum(x^2) and the element count, and the backward's sums are summed
+    over the group likewise.
     """
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, relu: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.relu = relu
         self.stats_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
         if self.training:
-            if self.stats_sum is None:
-                mean = xf.mean(dim=(0, 2, 3))
-                sq = (xf * xf).mean(dim=(0, 2, 3))
-            else:
-                c = xf.shape[1]
-                sums = self.stats_sum(torch.cat([
-                    xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                    torch.full_like(xf[0, :1, 0, 0], xf.numel() // c)]))
-                mean = sums[:c] / sums[-1]
-                sq = sums[c:2 * c] / sums[-1]
-            var = torch.clamp(sq - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(1.0 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1.0 - self.momentum).add_(
-                    self.momentum * var)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] \
-            + self.bias[None, :, None, None]
-        return y.to(x.dtype)
+            self.num_batches_tracked.add_(1)
+        return flax_batch_norm(x, self.weight, self.bias, self.running_mean,
+                               self.running_var, self.training, self.momentum,
+                               self.eps, self.stats_sum, self.relu)
 
 
 class FlaxInstanceNorm2d(nn.Module):

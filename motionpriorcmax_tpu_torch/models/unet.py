@@ -1,7 +1,9 @@
 """UNet from event voxel grids to motion-basis coefficient grids
 (JAX: models/unet.py), NCHW.
 
-  DoubleConv = (conv3x3 no bias -> BatchNorm -> ReLU) x 2
+  DoubleConv = (conv3x3 no bias -> BatchNorm -> ReLU) x 2, each ReLU fused
+               into its norm (its slot an nn.Identity, so the state-dict
+               indices stay)
   4 x Down   = maxpool 2 -> DoubleConv        (64 -> 128 -> 256 -> 512 -> 1024)
   4 x Up     = ConvTranspose2d(k2, s2) -> pad to the skip -> concat -> DoubleConv
   OutConv    = conv1x1
@@ -62,9 +64,9 @@ class DoubleConv(nn.Module):
         mid = mid_channels or out_channels
         self.double_conv = nn.Sequential(
             CastConv2d(in_channels, mid, 3, padding=1, bias=False),
-            FlaxBatchNorm2d(mid), nn.ReLU(),
+            FlaxBatchNorm2d(mid, relu=True), nn.Identity(),
             CastConv2d(mid, out_channels, 3, padding=1, bias=False),
-            FlaxBatchNorm2d(out_channels), nn.ReLU())
+            FlaxBatchNorm2d(out_channels, relu=True), nn.Identity())
 
     def forward(self, x):
         return self.double_conv(x)

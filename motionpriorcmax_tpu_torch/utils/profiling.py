@@ -240,10 +240,12 @@ def count_h2d(tensor: torch.Tensor, device) -> None:
 
 
 def _launch_counted():
-    from ..ops.cuda import (corr_window, iwe_vote, knn_topk, lut_gather,
-                            segment_sum, softmax_interp, voxel_vote)
+    from ..ops.cuda import (corr_window, flax_batch_norm, iwe_vote, knn_topk,
+                            lut_gather, segment_sum, softmax_interp,
+                            voxel_vote)
 
     return (corr_window.corr_window_lookup, corr_window.corr_window_lookup_bwd,
+            flax_batch_norm.flax_bn_reduce, flax_batch_norm.flax_bn_apply,
             iwe_vote.iwe_vote_fwd, iwe_vote.iwe_vote_bwd, knn_topk.knn_topk,
             lut_gather.lut_gather_fwd, lut_gather.lut_segsum_bwd,
             segment_sum.grid_segment_sum, softmax_interp.softmax_interp_fwd,

@@ -417,10 +417,11 @@ def test_snapshot_reads_the_launch_counts_and_reset_clears():
 
 @pytest.mark.cuda
 def test_profiled_flow_step_on_card():
-    """One tiny flow step on the card under torch.profiler: no device
-    event carries a program span's name; every span's device ms is finite
-    and positive; the layers' spans sum to at most the step's span, which
-    covers the device's busy time and lies within the profiled window."""
+    """One tiny flow step on the card under torch.profiler: the UNet's 18
+    norms launch their kernels; no device event carries a program span's
+    name; every span's device ms is finite and positive; the layers' spans
+    sum to at most the step's span, which covers the device's busy time and
+    lies within the profiled window."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     run = flow_step(False, device="cuda")
@@ -444,7 +445,13 @@ def test_profiled_flow_step_on_card():
     device = [e for e in events if e.device_type().name != "CPU"]
     assert device
     assert not any(e.name() in SPANS for e in device)
-    spans = profiling.snapshot()["spans"]
+    snap = profiling.snapshot()
+    # The f32 UNet's 18 BatchNorms (+ ReLU), train mode: 2 + 2 reduce
+    # launches (the forward's sums, the backward's) and 1 + 1 apply
+    # launches each.
+    assert snap["counters"]["launches.flax_bn_reduce"] == 18 * 4
+    assert snap["counters"]["launches.flax_bn_apply"] == 18 * 2
+    spans = snap["spans"]
     for name, entry in spans.items():
         assert entry["device_ms"] is not None, name
         assert math.isfinite(entry["device_ms"]), name
