@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Phases, one or more lines each; any failure exits non-zero:
+Phases, one or more lines each; any failure exits non-zero.  Numbers 6,
+12, 17, 23 and 28 are retired: where a path's time goes is measured by the
+program's spans under utils/profiling.py's `trace` and, for a benchmark
+cell, by `python -m perfbench.run --workload <cell> --trace 1`.
   1. environment: card name and count, nvidia-smi name and power limit, and
      the process's TF32 flags, left at torch's defaults as the CLI leaves
      them (the models' forwards turn both off for compute_dtype float32)
@@ -25,8 +28,6 @@ Phases, one or more lines each; any failure exits non-zero:
      + 3 synthetic B=8 384x512 requests: latency, samples/s, peak memory,
      kernel launches per request (12: one per refinement iteration),
      finite metrics, TF32 off inside every forward
-  6. where the time goes: CUDA events around the model's parts over 2 more
-     requests, then torch.profiler over one request (idle share)
   7. card vs CPU: the same weights and inputs through the port on the CPU
      (plain lookup) and on the card (kernel) at the small test geometry
   flow-train (self-supervised DSEC flow training, config/flow_training/
@@ -55,9 +56,6 @@ Phases, one or more lines each; any failure exits non-zero:
      checkpoint to a temporary directory: step ms, events/s, peak memory,
      kernel launches per step (2 + 2 vote, 1 + 1 gather, 1 exact KNN) and
      in the val pass, finite loss that changes, finite val EPE
- 12. where the time goes: CUDA events around UNet forward, trajectories,
-     KNN + interpolation, warp, vote + blur + objective, backward and
-     AdamW over 2 steps, then torch.profiler over one step (idle share)
  13. card vs CPU: one f32 train_step at the test geometry, kernels on the
      card against plain versions on the CPU: loss, gradients, BN statistics
   flow-train with loss.knn_method: softmax and voxel grids built in the
@@ -88,8 +86,6 @@ Phases, one or more lines each; any failure exits non-zero:
      1 voxel vote and the 6 of phase 11; in the val pass 1 softmax forward
      and 1 voxel vote; 1 warm-up + 3 timed steps, their four losses
      against the recorded ones
- 17. where the time goes, as phase 12, with "voxelize" and "softmax
-     interpolation" spans
  18. card vs CPU: one f32 train_step of this configuration at the test
      geometry
   traj-train (RAFT-Spline training, the Tab2L5 experiment config as it
@@ -114,11 +110,6 @@ Phases, one or more lines each; any failure exits non-zero:
  22. the same loop with loss.knn_method softmax (+ 1 + 1 softmax
      launches; the first three steps' losses against the recorded ones),
      and with the supervised step (gamma 0.8, 5 GT steps)
- 23. where the time goes, at each of the three points: CUDA events
-     around the encoders, volume, pyramid, lookups, update blocks,
-     upsample, the loss, backward (and the backward kernel in it) and
-     AdamW; the dense d corr accumulation; then torch.profiler over one
-     step
  24. card vs CPU: one f32 raft_train_step and one supervised step at the
      test geometry: loss, gradients, BatchNorm statistics
   flow-train on unsorted events (dsec.yaml with loss.knn_method: softmax
@@ -138,7 +129,6 @@ Phases, one or more lines each; any failure exits non-zero:
      LUT gather; TF32 off in the UNet's forward and backward; the four
      step losses against phase 16's recorded ones; the cell-sorted step
      of phase 16 beside it
- 28. where the time goes, as phase 17
  29. card vs CPU: one f32 unsorted train_step at the test geometry
  30. the JAX package's learning checks on the card, on unsorted events:
      loss-only recovery of a translation (exact and softmax, 45 Adam
@@ -261,27 +251,27 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 
+from card_cases import (
+    BATCH, DSEC_CONFIG, DSEC_INFERENCE_CONFIG, FLAX_BN_SHAPES, FLOW_CAPACITY,
+    FLOW_EVENTS, H, INFER_PARTS, K, KNN_K, KNN_OPS_PER_PAIR, KNN_PATHS,
+    KNN_VARIANTS, LEVELS, Q, RADIUS, TAB2L5_CONFIG, TOL_SEGMENT_SUM,
+    TOL_SEGMENT_SUM_FEW, TOL_SEGSUM, TOL_SOFTMAX, TOL_VOTE_BWD, TOL_VOTE_FWD,
+    TOL_VOXEL, TRAIN_BATCH, TRAIN_CAPACITY, TRAIN_EVENTS, TRAIN_STEPS, W,
+    check_knn, flax_bn_check, flax_bn_inputs, flow_configs, flow_samples,
+    infer_part_marks, knn_case, level_inputs, nvidia_smi_line,
+    segment_sum_cases, segsum_cases, skewed_events, softmax_cases,
+    softmax_loss_cfgs, timers, vote_band_share, vote_cases)
+
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
-# ~1 ms of card cycles, longer than any timed call's host-side enqueue
-# (time_ms's card time).
-HOST_COVER_CYCLES = 2_000_000
-RADIUS = 4
-K = (2 * RADIUS + 1) ** 2
-BATCH, H, W = 8, 384, 512
-Q = (H // 8) * (W // 8)
-# (targets, h2, w2) per pyramid level of Tab2L5: levels (1, 1, 1, 1, 4).
-LEVELS = [(5, 48, 64), (1, 24, 32), (1, 12, 16), (1, 6, 8)]
 TOL_KERNEL = 1e-5
 TOL_CARD_VS_CPU = 1e-4
 # One fused lookup launch (all levels) per refinement iteration, 12 per
@@ -291,13 +281,6 @@ LOOKUPS_PER_REQUEST = 12
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def nvidia_smi_line() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return smi.stdout.strip().splitlines()[0]
 
 
 def phase_env(torch):
@@ -342,24 +325,6 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
 
 
-def level_inputs(torch, t, h2, w2, lvl, seed, dtype, batch=BATCH):
-    """A level volume and window centres like the path's: the query pixel
-    scaled to the level plus a flow-like offset, with 5% of the centres far
-    outside or just outside the map."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    corr = torch.randn(t, batch, Q, h2, w2, device=dev, generator=g).to(dtype)
-    qy = (torch.arange(Q, device=dev) // (W // 8)).float()
-    qx = (torch.arange(Q, device=dev) % (W // 8)).float()
-    scale = 2.0 ** lvl
-    cx = (qx / scale + 3 * torch.randn(t, batch, Q, device=dev, generator=g))
-    cy = (qy / scale + 3 * torch.randn(t, batch, Q, device=dev, generator=g))
-    far = torch.rand(t, batch, Q, device=dev, generator=g) < 0.05
-    cx = torch.where(far, torch.full_like(cx, -1e6), cx)
-    cy = torch.where(far & (qx > 32), torch.full_like(cy, h2 + 0.5), cy)
-    return corr.contiguous(), cx.contiguous(), cy.contiguous()
-
-
 def needed_bytes(torch, corr, cx, cy):
     """Bytes the lookup must move for these inputs: the in-range window
     values (each once), the two coordinates and the K outputs per query."""
@@ -374,31 +339,6 @@ def needed_bytes(torch, corr, cx, cy):
     window_elems = float((nx * ny).sum().item())
     n = cx.numel()
     return window_elems * corr.element_size() + n * 8 + n * K * 4
-
-
-def time_ms(torch, fn, flush, reps=20, warmup=3, card=False):
-    """Median ms of fn() over reps launches, L2 flushed before each,
-    between two events recorded around fn.  When the host takes longer to
-    enqueue fn than the card takes to flush, the time includes the host's
-    launch overhead: the yardstick of every `ms` in the kernels line.  With
-    card=True a spin of the card (torch.cuda._sleep) between the flush and
-    the start event keeps it busy while the host enqueues fn, and the time
-    is the card's alone (`card_ms`)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        if card:
-            torch.cuda._sleep(HOST_COVER_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 # A level of width 10 beside the path's four in phase 3's fused launch:
@@ -474,15 +414,13 @@ def phase_kernel(torch):
                             / (h2 - 1) - 1], dim=-1).contiguous()
         img = corr.reshape(n, 1, h2, w2)
         one = [(corr, cx, cy, off)]
-        k_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
+        k_ms, kc_ms, _ = timers(torch, lambda: cw.corr_window_lookup_levels(
             one, RADIUS, out), flush)
-        kc_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-            one, RADIUS, out), flush, card=True)
-        p_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels_plain(
-            one, RADIUS, out), flush)
-        l_ms = time_ms(torch, lambda: F.grid_sample(
+        p_ms = timers(torch, lambda: cw.corr_window_lookup_levels_plain(
+            one, RADIUS, out), flush)[0]
+        l_ms = timers(torch, lambda: F.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), flush)
+            align_corners=True), flush)[0]
         nbytes = needed_bytes(torch, corr, cx, cy)
         flops = n * K * 7
         bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
@@ -496,12 +434,11 @@ def phase_kernel(torch):
                        ("level_card_ms", kc_ms)):
             totals[key] += v
         del grid, img, gx, gy
-    totals["ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-        levels, RADIUS, out), flush)
-    totals["card_ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-        levels, RADIUS, out), flush, card=True)
-    rest_ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-        levels[1:], RADIUS, out), flush)
+    totals["ms"], totals["card_ms"], _ = timers(
+        torch, lambda: cw.corr_window_lookup_levels(levels, RADIUS, out),
+        flush)
+    rest_ms = timers(torch, lambda: cw.corr_window_lookup_levels(
+        levels[1:], RADIUS, out), flush)[0]
     del flush, levels, out
     torch.cuda.empty_cache()
     print(f"[timing] one refinement iteration (1 launch, levels 1-4): "
@@ -594,109 +531,6 @@ def phase_serving(torch, model, requests, ts, tag="serving"):
     return launches
 
 
-def phase_breakdown(torch, model, host_batch, ts):
-    """Where a request's time goes, with the batch already on the card."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from motionpriorcmax_tpu_torch.models.raft_spline import raft
-    from motionpriorcmax_tpu_torch.training.raft_spline import \
-        raft_validation_step
-
-    batch = {k: v.cuda() for k, v in host_batch.items()}
-    spans = defaultdict(list)            # part -> [(start, end) events]
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def request():
-        spans.clear()
-        t0 = time.perf_counter()
-        start = event()
-        raft_validation_step(model, batch, ts)
-        end = event()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        parts = {k: sum(s.elapsed_time(e) for s, e in v)
-                 for k, v in spans.items()}
-        parts["rest"] = start.elapsed_time(end) - sum(parts.values())
-        return wall, start.elapsed_time(end), parts
-
-    # Events around the encoders and the update block (module hooks) and
-    # around the corr functions raft.py calls (wrapped for this phase only).
-    starts = defaultdict(list)
-    hooks = []
-    for name in ("fnet_ev", "cnet", "update_block"):
-        mod = getattr(model, name)
-        hooks.append(mod.register_forward_pre_hook(
-            lambda m, i, name=name: starts[name].append(event())))
-        hooks.append(mod.register_forward_hook(
-            lambda m, i, o, name=name: spans[name].append(
-                (starts[name].pop(), event()))))
-
-    def wrap(name, fn):
-        def inner(*a, **k):
-            s = event()
-            out = fn(*a, **k)
-            spans[name].append((s, event()))
-            return out
-        return inner
-
-    wrapped = ("compute_corr_volume", "build_corr_pyramid",
-               "lookup_corr_pyramid")
-    originals = {name: getattr(raft, name) for name in wrapped}
-    for name in wrapped:
-        setattr(raft, name, wrap(name, originals[name]))
-    try:
-        request()                                            # warm-up
-        runs = [request() for _ in range(BREAKDOWN_RUNS)]
-    finally:
-        for name in wrapped:
-            setattr(raft, name, originals[name])
-        for h in hooks:
-            h.remove()
-    walls = [r[0] for r in runs]
-    dev_ms = float(np.median([r[1] for r in runs]))
-    print(f"[breakdown] batch on the card, {BREAKDOWN_RUNS} requests after 1 "
-          f"warm-up: wall "
-          f"median {np.median(walls):.2f} ms "
-          f"({', '.join(f'{x:.2f}' for x in walls)}), between CUDA events "
-          f"median {dev_ms:.2f} ms")
-    for name in ("fnet_ev", "compute_corr_volume", "build_corr_pyramid",
-                 "cnet", "lookup_corr_pyramid", "update_block", "rest"):
-        med = float(np.median([r[2].get(name, 0.0) for r in runs]))
-        print(f"[breakdown]   {name:20s} {med:9.2f} ms  "
-              f"{100 * med / dev_ms:5.1f}%")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _, _ = request()
-    # Kernel events only: an operator's device time repeats its kernels'.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print("[breakdown] torch.profiler recorded no device time")
-        return
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[breakdown] torch.profiler, one request: kernels busy "
-          f"{busy_ms:.2f} ms of {wall:.2f} ms wall, idle share "
-          f"{1 - busy_ms / wall:.3f}, "
-          f"{sum(e.count for e in kernels)} kernel launches")
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in kernels[:8]:
-        print(f"[breakdown]   {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:5d}x  {e.key[:80]}")
-    for e in kernels:
-        if "corr_window" in e.key:
-            print(f"[breakdown]   corr_window kernel: "
-                  f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
-                  f"launches")
-
-
 def phase_card_vs_cpu(torch):
     from motionpriorcmax_tpu_torch.models.raft_spline import RAFTSplineConfig
     from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
@@ -726,43 +560,8 @@ def phase_card_vs_cpu(torch):
 # flow-train: self-supervised DSEC flow training
 # ---------------------------------------------------------------------------
 
-# config/flow_training/dsec.yaml as a dict: the GPU machine has no yaml
-# (tests/test_torch_flow_train.py checks that the two agree).
-DSEC_CONFIG = {
-    "common": {"height": 480, "width": 640, "num_bins": 15,
-               "polarity_aware_batching": True, "patch_size": 4},
-    "model": {"lr": 0.0001, "model_type": "default", "num_basis": 1,
-              "basis_type": "polynomial", "compute_dtype": "bfloat16"},
-    "loss": {"loss_name": "FOCUS", "num_tref": 1, "num_knn": 32,
-             "smooth_weight": 0.003, "lut_superpixel_size": 4,
-             "focus_loss_norm": "l1", "dist_norm": "l2",
-             "scale_iwe_by_dt": True, "mask_image_border": True,
-             "interpolation_scheme": "mean",
-             "smooth_type": "on_flow_to_tref"},
-    "data": {"dataset": "DSEC", "data_path": "data/dsec/train",
-             "num_workers": 16, "batch_size": 14, "norm_type": "mean_std",
-             "quantile": 0},
-    "trainer": {"max_epochs": 100},
-}
-FLOW_CAPACITY = 1 << 20            # the CLI's --event-capacity default
-FLOW_EVENTS = 1_000_000            # events per synthetic 100 ms window
 FLOW_STEPS = 3                     # 1 warm-up + 2 timed
 # (the phases that hold SOFTMAX_STEP_LOSSES take one step per loss)
-# Steps (requests) after 1 warm-up in each "where the time goes" phase.
-BREAKDOWN_RUNS = 2
-# Kernel vs plain on the card: the vote adds a pixel's votes with atomics
-# in run-dependent order (a few ulps of the pixel's sum); its backward and
-# the segment sum use the same f32 sums as their plain versions up to
-# fused multiply-adds and summation order; the gather is a selection.
-TOL_VOTE_FWD = 1e-5                # relative to the image's largest value
-TOL_VOTE_BWD = 1e-5                # relative to the largest cotangent
-TOL_SEGSUM = 1e-5                  # relative to the largest cell sum
-# Rows 7 and 8: the interpolation sums its weights in another order than
-# the plain version's matrix product, with fused multiply-adds; the voxel
-# vote adds a voxel's votes in a run-dependent order (its records reach
-# the voxel's owner thread in the order integer atomics gave them).
-TOL_SOFTMAX = 1e-5                 # relative to the largest plain value
-TOL_VOXEL = 1e-5                   # relative to the grid's largest value
 TOL_TRAIN_LOSS = 1e-4              # card vs CPU, relative
 # The softmax / device-voxel steps' losses on phase 8's batches, as the
 # port printed them before the voxel vote's tiles (cell-sorted; the
@@ -780,42 +579,6 @@ TRAJ_SOFTMAX_STEP_LOSSES = (0.559594, 0.549575, 0.529107)
 TOL_STEP_LOSS = 1e-4               # relative
 TOL_TRAIN_GRAD = 1e-4              # card vs CPU, of each tensor's largest
 TOL_TRAIN_BN = 1e-4                # card vs CPU, of each buffer's largest
-
-
-def flow_configs(tree, **model_overrides):
-    from motionpriorcmax_tpu_torch.cli.main import flow_configs as build
-    from motionpriorcmax_tpu_torch.config import propagate_config
-
-    tree = propagate_config(copy.deepcopy(tree))
-    tree["model"].update(model_overrides)
-    return build(tree)
-
-
-def flow_samples(seed, n_samples, n_events, h, w, nb, gt=False, voxel=True):
-    """DSEC-like samples from a numpy seed: rectified (float) pixel
-    coordinates, sorted normalized times, random polarity, host voxel
-    grids (unless not `voxel`); with `gt` a GT flow and validity mask."""
-    from motionpriorcmax_tpu_torch.data.host_ops import voxelize_normalized_host
-
-    rng = np.random.default_rng(seed)
-    edges = np.linspace(0, 1, nb + 1)
-    samples = []
-    for _ in range(n_samples):
-        t = np.sort(rng.random(n_events))
-        ev = np.stack([rng.random(n_events) * (h - 1),
-                       rng.random(n_events) * (w - 1), t,
-                       rng.integers(0, 2, n_events),
-                       np.clip(np.searchsorted(edges, t) - 1, 0, None)],
-                      -1).astype(np.float32)
-        s = {"pos_events": ev[ev[:, 3] == 1], "neg_events": ev[ev[:, 3] == 0]}
-        if voxel:
-            s["voxel"] = voxelize_normalized_host(ev, nb, h, w)
-        if gt:
-            s["forward_flow"] = (3 * rng.standard_normal((2, h, w))
-                                 ).astype(np.float32)
-            s["flow_valid"] = rng.random((h, w)) < 0.7
-        samples.append(s)
-    return samples
 
 
 def phase_flow_batch(cfg, loss_cfg, batch_size):
@@ -854,82 +617,11 @@ def phase_flow_batch(cfg, loss_cfg, batch_size):
     return train, batch, unsorted_train, unsorted, samples
 
 
-def vote_inputs(torch, events, npos, seed, flow_scale=1.0):
-    """Warped coordinates and weights of one polarity half, the layout
-    make_iwes votes: (y, x) plus a smooth flow of up to 8 x flow_scale
-    px, 5% of them far outside."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    y, x = events[..., 0], events[..., 1]
-    coords = torch.stack([y + 8 * flow_scale * torch.sin(x / 50),
-                          x + 6 * flow_scale * torch.cos(y / 40)], dim=-1)
-    far = torch.rand(coords.shape[:2], device="cuda", generator=g) < 0.05
-    sign = torch.where(torch.rand(coords.shape[:2], device="cuda",
-                                  generator=g) < 0.5, -1.0, 1.0)
-    coords = torch.where(far[..., None], (sign * 1e9)[..., None], coords)
-    weight = events[..., 5] * (1 - (events[..., 2] - 0.5).abs())
-    return coords[:, :npos], weight[:, :npos]       # batch-strided views
-
-
-def vote_batch(seed=7, cell_sort=True):
-    """Phase 8's host batch without its voxel grids (the inputs of
-    kernel_ab.py): 14 samples of FLOW_EVENTS events at dsec.yaml's
-    shapes, collated with the loader's LUT-cell sort or, without
-    `cell_sort`, in time order as the unsorted path collates them."""
-    from motionpriorcmax_tpu_torch.data.collate import collate_fixed_capacity
-
-    cfg, loss_cfg = flow_configs(DSEC_CONFIG)
-    h, w = cfg.image_shape
-    samples = flow_samples(seed, DSEC_CONFIG["data"]["batch_size"],
-                           FLOW_EVENTS, h, w, cfg.num_bins, gt=True,
-                           voxel=False)
-    params = (loss_cfg.image_shape, loss_cfg.num_bins,
-              loss_cfg.lut_superpixel_size) if cell_sort else None
-    return collate_fixed_capacity(samples, FLOW_CAPACITY, polarity_aware=True,
-                                  lut_cell_sort_params=params), loss_cfg
-
-
-def vote_cases(torch, batch, h, w, nb, superpixel):
-    """The IWE vote's inputs at the path's shapes, one polarity half of
-    the batch (B x num_pos_events), as {label: (coords, weight)}:
-      sorted    the half as the path votes it, cell-sorted (row 3)
-      unsorted  the same events in random order (row 4)
-      skewed    per sample half the live events in one 16 x 64 region
-                and 1% on one pixel, then sorted again by the loader's
-                LUT-cell sort (a hot pixel's events adjacent)
-      wide      the sorted half with its flow x 6 (up to 48 px): chunks
-                whose taps span more rows than the band holds."""
-    from motionpriorcmax_tpu_torch.data.host_ops import lut_cell_sort
-
-    npos = batch["num_pos_events"]
-    events = torch.from_numpy(batch["events"]).cuda()
-    b = events.shape[0]
-    coords, weight = vote_inputs(torch, events, npos, 11)
-    g = torch.Generator(device="cuda").manual_seed(13)
-    perm = torch.argsort(torch.rand(b, npos, device="cuda", generator=g), 1)
-    skew = skewed_events(batch["events"], h, w, 12)
-    for i in range(b):
-        skew[i] = lut_cell_sort(skew[i], (h, w), nb, superpixel,
-                                num_pos_events=npos)[0]
-    return {
-        "sorted": (coords, weight),
-        "unsorted": (torch.gather(coords, 1, perm[..., None].expand(-1, -1, 2)),
-                     torch.gather(weight, 1, perm)),
-        "skewed": vote_inputs(torch, torch.from_numpy(skew).cuda(), npos, 11),
-        "wide": vote_inputs(torch, events, npos, 11, flow_scale=6.0),
-    }
-
-
-def vote_band_share(iv, coords, weight, h, w):
-    """Share of the live taps that the forward kernel's partition (its
-    plain twin) votes through the shared-memory band."""
-    _, n_band, n_direct = iv.iwe_vote_banded_plain(coords, weight, h, w)
-    return n_band / max(1, n_band + n_direct)
-
-
-def time_kernel(torch, label, fn, plain, library, flush, nbytes):
-    k_ms = time_ms(torch, fn, flush)
-    p_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
-    l_ms = (time_ms(torch, library, flush, reps=5, warmup=1)
+def time_kernel(torch, label, k_ms, plain, library, flush, nbytes):
+    """The kernels-line numbers of a kernel whose timers' ms is `k_ms`:
+    its bytes bound, and its plain version and the library call timed."""
+    p_ms = timers(torch, plain, flush, reps=5, warmup=1)[0]
+    l_ms = (timers(torch, library, flush, reps=5, warmup=1)[0]
             if library is not None else None)
     bound = nbytes / H100_BYTES_PER_S * 1e3
     lib = f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none"
@@ -1002,19 +694,17 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
         share = vote_band_share(iv, c, v, h, w)
         print(f"[flow-kernel-vs-plain] iwe_vote_fwd {label}: {share:.4f} of "
               f"the live taps through the shared-memory band (plain twin)")
-        card_ms = time_ms(torch, lambda: iv.iwe_vote_fwd(c, v, h, w), flush,
-                          card=True)
+        k_ms, card_ms, _ = timers(torch, lambda: iv.iwe_vote_fwd(c, v, h, w),
+                                  flush)
         print(f"[flow-timing] iwe_vote_fwd {label}: card time "
               f"{card_ms * 1e3:.1f} us")
         e_b = vote_bwd_check(label, c, v, gimg)
-        bwd_card_ms = time_ms(
+        bwd_ms, bwd_card_ms, _ = timers(
             torch, lambda: iv.iwe_vote_bwd(c, v, gimg, h, w,
-                                           need_dweight=False),
-            flush, card=True)
+                                           need_dweight=False), flush)
         print(f"[flow-timing] iwe_vote_bwd {label}: card time "
               f"{bwd_card_ms * 1e3:.1f} us")
         if label in ("skewed", "wide"):
-            k_ms = time_ms(torch, lambda: iv.iwe_vote_fwd(c, v, h, w), flush)
             print(f"[flow-timing] iwe_vote_fwd {label}: kernel="
                   f"{k_ms * 1e3:.1f} us bound="
                   f"{fwd_bytes / H100_BYTES_PER_S * 1e6:.1f} us")
@@ -1022,13 +712,11 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
                 f"{label}_ms": k_ms, f"{label}_card_ms": card_ms,
                 f"{label}_bound_ms": fwd_bytes / H100_BYTES_PER_S * 1e3,
                 f"{label}_max_abs_err": e_f, f"{label}_band_share": share})
-            k_ms = time_ms(torch, lambda: iv.iwe_vote_bwd(
-                c, v, gimg, h, w, need_dweight=False), flush)
             print(f"[flow-timing] iwe_vote_bwd {label}: kernel="
-                  f"{k_ms * 1e3:.1f} us bound="
+                  f"{bwd_ms * 1e3:.1f} us bound="
                   f"{bwd_bytes / H100_BYTES_PER_S * 1e6:.1f} us")
             out["iwe_vote_bwd"].update({
-                f"{label}_ms": k_ms, f"{label}_card_ms": bwd_card_ms,
+                f"{label}_ms": bwd_ms, f"{label}_card_ms": bwd_card_ms,
                 f"{label}_bound_ms": bwd_bytes / H100_BYTES_PER_S * 1e3,
                 f"{label}_max_abs_err": e_b})
             continue
@@ -1043,14 +731,12 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
         del y1, x1, corners
         img = torch.zeros(b * h * w, device="cuda")
         f = time_kernel(
-            torch, f"iwe_vote_fwd {label}",
-            lambda: iv.iwe_vote_fwd(c, v, h, w),
+            torch, f"iwe_vote_fwd {label}", k_ms,
             lambda: iv.iwe_vote_fwd_plain(c, v, h, w),
             lambda: img.zero_().index_put_((idx,), val, accumulate=True),
             flush, fwd_bytes)
         bw = time_kernel(
-            torch, f"iwe_vote_bwd {label}",
-            lambda: iv.iwe_vote_bwd(c, v, gimg, h, w, need_dweight=False),
+            torch, f"iwe_vote_bwd {label}", bwd_ms,
             lambda: iv.iwe_vote_bwd_plain(c, v, gimg, h, w,
                                           need_dweight=False),
             None, flush, bwd_bytes)
@@ -1071,8 +757,8 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
     c, v = cases["unsorted"]
     gsel = torch.randn(b, 2, h, w, device="cuda").select(1, 0)
     e_s = vote_bwd_check("unsorted_strided", c, v, gsel)
-    s_card_ms = time_ms(torch, lambda: iv.iwe_vote_bwd(
-        c, v, gsel, h, w, need_dweight=False), flush, card=True)
+    s_card_ms = timers(torch, lambda: iv.iwe_vote_bwd(
+        c, v, gsel, h, w, need_dweight=False), flush)[1]
     print(f"[flow-timing] iwe_vote_bwd unsorted_strided: card time "
           f"{s_card_ms * 1e3:.1f} us")
     out["iwe_vote_bwd"].update(unsorted_strided_card_ms=s_card_ms,
@@ -1100,7 +786,8 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
             + rows.long() * wq + cols.long()).reshape(-1)
     lut_flat = lut.reshape(-1, 2)
     out["lut_gather_fwd"] = time_kernel(
-        torch, "lut_gather_fwd", lambda: lg.lut_gather_fwd(lut, rows, cols),
+        torch, "lut_gather_fwd",
+        timers(torch, lambda: lg.lut_gather_fwd(lut, rows, cols), flush)[0],
         lambda: lg.lut_gather_plain(lut, rows, cols),
         lambda: lut_flat[flat], flush,
         b * m * 8 + b * m * 2 * 4 + lut.numel() * 4)
@@ -1125,23 +812,20 @@ def phase_flow_kernels(torch, cfg, loss_cfg, batch):
         del got, again
         nbytes = (gev.numel() * 4 + ends.numel() * 4
                   + gev.shape[0] * n_cells * 2 * 4)
-        card_ms = time_ms(torch, lambda: lg.lut_segsum_bwd(gev, ends, n_cells),
-                          flush, card=True)
+        k_ms, card_ms, _ = timers(
+            torch, lambda: lg.lut_segsum_bwd(gev, ends, n_cells), flush)
         print(f"[flow-timing] lut_segsum_bwd {label}: card time "
               f"{card_ms * 1e3:.1f} us")
         if label == "sorted":
             dl = torch.zeros(b * cells, 2, device="cuda")
             gflat = gev.reshape(-1, 2)
             nums = time_kernel(
-                torch, "lut_segsum_bwd",
-                lambda: lg.lut_segsum_bwd(gev, ends, n_cells),
+                torch, "lut_segsum_bwd", k_ms,
                 lambda: lg.lut_segsum_plain(gev, ends, n_cells),
                 lambda: dl.zero_().index_add_(0, flat, gflat), flush, nbytes)
             nums.update(max_abs_err=err, card_ms=card_ms)
             del dl, gflat
         else:
-            k_ms = time_ms(torch, lambda: lg.lut_segsum_bwd(gev, ends,
-                                                            n_cells), flush)
             bound = nbytes / H100_BYTES_PER_S * 1e3
             print(f"[flow-timing] lut_segsum_bwd {label}: kernel="
                   f"{k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
@@ -1163,42 +847,6 @@ def sm_clock_hz() -> float:
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True)
     return float(smi.stdout.strip().splitlines()[0]) * 1e6
-
-
-def softmax_inputs(torch, loss_cfg, b, seed, far=0.01):
-    """The interpolation's operands at a step's shapes: the LUT grid as
-    queries; db = linear trajectories (flow up to 60 px at t = 1, a share
-    `far` of them far outside the image) at the bin midtimes; values =
-    their flow to t_ref = 0.37 (and to the next bin, as the step adds with
-    smooth_type on_flow_to_next); the band the step computes (per bin
-    unless the config asks for a dynamic one)."""
-    from motionpriorcmax_tpu_torch.losses.focus import (interp_band,
-                                                        lut_grid_points)
-
-    loss_cfg = dataclasses.replace(loss_cfg, interp_band_per_bin=True)
-    h, w = loss_cfg.image_shape
-    s, nb = loss_cfg.lut_superpixel_size, loss_cfg.num_bins
-    wq = w // s
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    grid = torch.from_numpy(lut_grid_points(loss_cfg)).to(dev)      # [N, 2]
-    n = grid.shape[0]
-    flow = (torch.rand(b, n, 2, device=dev, generator=g) * 2 - 1) * 60.0
-    away = torch.rand(b, n, device=dev, generator=g) < far
-    # Far trajectories: >= 3,000 px out of the image even at bin 0.
-    flow = torch.where(away[..., None], torch.full_like(flow, 1e5), flow)
-    t_mid = (torch.arange(nb, device=dev, dtype=torch.float32) + 0.5) / nb
-    db = grid[None, None] + flow[:, None] * t_mid[None, :, None, None]
-    vals = flow[:, None] * (0.37 - t_mid)[None, :, None, None]
-    if (loss_cfg.smooth_weight > 0
-            and loss_cfg.smooth_type == "on_flow_to_next"):
-        to_next = (flow[:, None] / nb).expand(-1, nb, -1, -1).clone()
-        to_next[:, -1] = 0.0
-        vals = torch.cat([vals, to_next], dim=-1)
-    db = db.reshape(b * nb, n, 2).contiguous()
-    vals = vals.reshape(b * nb, n, vals.shape[-1]).contiguous()
-    band = interp_band(loss_cfg, grid, db, b, nb, wq)
-    return grid, db, vals, band
 
 
 def sdpa_yardstick(torch, queries, db, vals, temp):
@@ -1223,38 +871,6 @@ def sdpa_yardstick(torch, queries, db, vals, temp):
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             return F.scaled_dot_product_attention(qq, kk, vv, scale=1.0)
     return run
-
-
-def softmax_loss_cfgs():
-    """The focus-loss configurations of the two softmax steps: flow-train
-    (dsec.yaml, phase 16) and traj-train (Tab2L5, phase 22)."""
-    from motionpriorcmax_tpu_torch.cli.main import traj_train_configs
-
-    _, flow = flow_configs({**DSEC_CONFIG, "loss": {
-        **DSEC_CONFIG["loss"], "knn_method": "softmax"}})
-    traj = traj_train_configs({**TAB2L5_CONFIG, "loss": {
-        **TAB2L5_CONFIG["loss"], "knn_method": "softmax"}}, (H, W),
-        TRAIN_STEPS)[2]
-    return flow, traj
-
-
-def softmax_cases(torch, flow_loss, traj_loss):
-    """{label: (queries, db, vals, slots, temp)}: "flow", the flow-train
-    softmax step's shapes (B=14: G=210, Q=N=19,200, C=2, per-bin band, 1%
-    far trajectories), and "traj", the traj-train softmax step's (B=6:
-    G=246, Q=N=12,288, C=4 with the flow to the next bin, the per-group
-    dynamic band that traj_train_configs sets, no far trajectory: one
-    would widen its group's band to the whole grid)."""
-    from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
-
-    out = {}
-    for label, cfg, b, seed, far in (
-            ("flow", flow_loss, DSEC_CONFIG["data"]["batch_size"], 21, 0.01),
-            ("traj", traj_loss, TRAIN_BATCH, 23, 0.0)):
-        queries, db, vals, band = softmax_inputs(torch, cfg, b, seed, far)
-        slots = si.scan_slots(queries, band, db.shape[0], db.shape[1])
-        out[label] = (queries, db, vals, slots, float(cfg.softmax_temp))
-    return out
 
 
 def softmax_bound(torch, pairs, c, q, g, n, fwd):
@@ -1456,10 +1072,9 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
              lambda: si.softmax_interp_bwd_plain(queries, db, gs, temp,
                                                  slots),
              None)):
-        k_ms = time_ms(torch, fn, flush, reps=10, warmup=2)
-        kc_ms = time_ms(torch, fn, flush, reps=10, warmup=0, card=True)
-        p_ms = time_ms(torch, plain, flush, reps=1, warmup=1)
-        l_ms = (time_ms(torch, library, flush, reps=3, warmup=1)
+        k_ms, kc_ms, _ = timers(torch, fn, flush, reps=10, warmup=2)
+        p_ms = timers(torch, plain, flush, reps=1, warmup=1)[0]
+        l_ms = (timers(torch, library, flush, reps=3, warmup=1)[0]
                 if library is not None else None)
         needed = checked["needed_pairs"]
         bound, unit, parts = softmax_bound(torch, needed, c, q, g, n, fwd)
@@ -1512,8 +1127,7 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
              lambda: si.softmax_interp_fwd(queries, db, vals, temp, slots)),
             ("softmax_interp_bwd", False,
              lambda: si.softmax_interp_bwd(queries, db, gs, temp, slots))):
-        k_ms = time_ms(torch, fn, flush, reps=10, warmup=2)
-        kc_ms = time_ms(torch, fn, flush, reps=10, warmup=0, card=True)
+        k_ms, kc_ms, _ = timers(torch, fn, flush, reps=10, warmup=2)
         bound, unit, _ = softmax_bound(torch, checked["needed_pairs"], c, q,
                                        g, n, fwd)
         computed = checked["computed_pairs_fwd" if fwd else
@@ -1552,12 +1166,11 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
         err = check_close(f"voxel_vote {label} B={b} M={m} {nb}x{h}x{w}",
                           vv.voxel_vote(ev, nb, h, w),
                           vv.voxel_vote_plain(ev, nb, h, w), TOL_VOXEL)
-        kc_ms = time_ms(torch, lambda: vv.voxel_vote(ev, nb, h, w), flush,
-                        card=True)
+        k_ms, kc_ms, _ = timers(torch, lambda: vv.voxel_vote(ev, nb, h, w),
+                                flush)
         print(f"[flow-timing] voxel_vote {label}: card time {kc_ms * 1e3:.1f}"
               f" us (the card spun while the host enqueued the call)")
         if label == "skewed":
-            k_ms = time_ms(torch, lambda: vv.voxel_vote(ev, nb, h, w), flush)
             print(f"[flow-timing] voxel_vote skewed: kernel={k_ms * 1e3:.1f} "
                   f"us ({k_ms / out['voxel_vote']['unsorted_ms']:.2f}x the "
                   f"unsorted batch)")
@@ -1567,7 +1180,7 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
         idx, val = vv.voxel_taps(ev, nb, h, w)
         idx, val = idx.reshape(-1), val.reshape(-1)
         nums = time_kernel(
-            torch, f"voxel_vote {label}", lambda: vv.voxel_vote(ev, nb, h, w),
+            torch, f"voxel_vote {label}", k_ms,
             lambda: vv.voxel_vote_plain(ev, nb, h, w),
             lambda: img.zero_().index_add_(0, idx, val), flush, nbytes)
         if label == "sorted":
@@ -1590,87 +1203,6 @@ def phase_softmax_kernels(torch, loss_cfg, batch):
     del edge
     torch.cuda.empty_cache()
     return out
-
-
-def skewed_events(events, h, w, seed):
-    """The batch's events [B, M, 6] (numpy) with, per sample, half the live
-    events moved into one 16 x 64-pixel region and 1% onto one pixel."""
-    rng = np.random.default_rng(seed)
-    ev = events.copy()
-    for i in range(ev.shape[0]):
-        live = np.flatnonzero(ev[i, :, 5] > 0)
-        moved = rng.permutation(live)[:live.size // 2]
-        y0 = rng.integers(0, h - 16)
-        x0 = rng.integers(0, w - 64)
-        ev[i, moved, 0] = rng.uniform(y0, y0 + 16, moved.size)
-        ev[i, moved, 1] = rng.uniform(x0, x0 + 64, moved.size)
-        hot = moved[:live.size // 100]
-        ev[i, hot, 0] = y0 + 7.5
-        ev[i, hot, 1] = x0 + 31.25
-    return ev
-
-
-def sorted_segsum_case(torch, b, half, live, cells, seed):
-    """Cotangents [B, 2 * half, 2] and cell_ends [B, 2 * cells] of a
-    polarity-packed, cell-sorted batch made on the card in the loader's
-    layout (data/host_ops.py::lut_cell_sort): per half, `live` events on
-    uniform random cells, and half - live padding rows in cell 0 after
-    that cell's live events, with zero cotangent."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    g = torch.randn(b, 2 * half, 2, device=dev, generator=gen)
-    pos = torch.arange(half, device=dev)[None]
-    ends = []
-    for s in range(2):
-        keys = torch.randint(0, cells, (b, live), device=dev, generator=gen)
-        counts = torch.zeros(b, cells, dtype=torch.long, device=dev)
-        counts.scatter_add_(1, keys, torch.ones_like(keys))
-        first = counts[:, :1].clone()
-        counts[:, 0] += half - live
-        ends.append(s * half + torch.cumsum(counts, 1))
-        pad = (pos >= first) & (pos < first + half - live)
-        g[:, s * half:(s + 1) * half][pad] = 0.0
-    return g, torch.cat(ends, 1).int()
-
-
-def segsum_cases(torch, batch, loss_cfg):
-    """Row 6's inputs, {label: (g [B, M, 2], cell_ends, cells)}:
-      sorted  phase 8's cell-sorted batch, normal cotangents, zero on the
-              padding rows (their vote weight is 0): the path's; the
-              padding forms the long run of cell 0 of each half (~24k)
-      skewed  the same samples through skewed_events, sorted again by the
-              loader's LUT-cell sort: runs of hundreds of events
-      traj    the traj-train shape: B=6, 2^19 live events per sample in
-              capacity 2^20, LUT [3936, 128]: 2^18 padding rows per half
-              (sorted_segsum_case)"""
-    from motionpriorcmax_tpu_torch.data.host_ops import lut_cell_sort
-
-    h, w = loss_cfg.image_shape
-    nb, sp = loss_cfg.num_bins, loss_cfg.lut_superpixel_size
-    cells = nb * (h // sp) * (w // sp)
-    npos = batch["num_pos_events"]
-    gen = torch.Generator(device="cuda").manual_seed(21)
-
-    def cotangents(ev):
-        valid = torch.from_numpy(ev[..., 5]).cuda()
-        return (torch.randn(*valid.shape, 2, device="cuda", generator=gen)
-                * valid[..., None])
-
-    skew = skewed_events(batch["events"], h, w, 12)
-    skew_ends = np.empty_like(batch["lut_cell_ends"])
-    for i in range(len(skew)):
-        skew[i], skew_ends[i] = lut_cell_sort(skew[i], (h, w), nb, sp,
-                                              num_pos_events=npos)
-    tr, tx = TRAJ_LUT
-    traj = sorted_segsum_case(torch, TRAIN_BATCH, TRAIN_CAPACITY // 2,
-                              TRAIN_EVENTS // 2, tr * tx, 22)
-    return {
-        "sorted": (cotangents(batch["events"]),
-                   torch.from_numpy(batch["lut_cell_ends"]).cuda(), cells),
-        "skewed": (cotangents(skew), torch.from_numpy(skew_ends).cuda(),
-                   cells),
-        "traj": (*traj, tr * tx),
-    }
 
 
 def edge_events(b, m, h, w, ty, tx, seed):
@@ -1738,26 +1270,21 @@ UNSORTED_STEP = {**SOFTMAX_STEP, "lut_gather_fwd": 0, "lut_segsum_bwd": 0,
 UNSORTED_VAL = {**SOFTMAX_VAL, "lut_gather_fwd": 0}
 
 
-def kernel_wrappers():
-    from motionpriorcmax_tpu_torch.ops.cuda import flax_batch_norm as fbn
-    from motionpriorcmax_tpu_torch.ops.cuda import iwe_vote as iv
-    from motionpriorcmax_tpu_torch.ops.cuda import knn_topk as kt
-    from motionpriorcmax_tpu_torch.ops.cuda import lut_gather as lg
-    from motionpriorcmax_tpu_torch.ops.cuda import segment_sum as ss
-    from motionpriorcmax_tpu_torch.ops.cuda import softmax_interp as si
-    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
+def launch_counts():
+    """{wrapper: kernel launches} of every ops/cuda wrapper since the last
+    profiling.reset(): the launches.<wrapper> counters of
+    profiling.snapshot()."""
+    from motionpriorcmax_tpu_torch.utils import profiling
 
-    fns = {"iwe_vote_fwd": iv.iwe_vote_fwd, "iwe_vote_bwd": iv.iwe_vote_bwd,
-           "lut_gather_fwd": lg.lut_gather_fwd,
-           "lut_segsum_bwd": lg.lut_segsum_bwd,
-           "softmax_interp_fwd": si.softmax_interp_fwd,
-           "softmax_interp_bwd": si.softmax_interp_bwd,
-           "voxel_vote": vv.voxel_vote,
-           "grid_segment_sum": ss.grid_segment_sum,
-           "knn_topk": kt.knn_topk,
-           "flax_bn_reduce": fbn.flax_bn_reduce,
-           "flax_bn_apply": fbn.flax_bn_apply}
-    return fns
+    return {name[len("launches."):]: n for name, n in
+            profiling.snapshot()["counters"].items()
+            if name.startswith("launches.")}
+
+
+def launched(counts):
+    """The wrappers of `counts` that launched: a launch table's zeros and
+    the wrappers it leaves out both mean none."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
@@ -1772,16 +1299,15 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
     import tempfile
 
     from motionpriorcmax_tpu_torch.training.loop import train_flow
+    from motionpriorcmax_tpu_torch.utils import profiling
 
-    fns = kernel_wrappers()
     marks = []          # (time, launch counts) at every step boundary
 
     reduced = []        # the mesh's all-reduced bytes at each boundary
 
     def mark():
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(),
-                      {k: f.launches for k, f in fns.items()}))
+        marks.append((time.perf_counter(), launch_counts()))
         if mesh is not None:
             reduced.append(mesh.reduced_bytes)
 
@@ -1795,12 +1321,11 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
     with tempfile.TemporaryDirectory() as workdir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for f in fns.values():
-            f.launches = 0
+        profiling.reset()
         train_flow(cfg, loss_cfg, timed_batches(), [val_batch], workdir,
                    device="cuda", max_epochs=1, num_pos_events=npos,
                    log_every=1, seed=0, resume_state=state, mesh=mesh)
-        launches = {k: f.launches for k, f in fns.items()}
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         with open(f"{workdir}/scalars.jsonl") as fh:
             recs = [json.loads(line) for line in fh]
@@ -1817,12 +1342,14 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
     for i, (dt, counts) in enumerate(steps):
         print(f"[{tag}] step {i}{' (warm-up)' if i == 0 else ''}: "
               f"{dt * 1e3:.1f} ms (host batch to logged loss), loss "
-              f"{losses[i]:.6f}, launches {counts}")
-    if any(counts != want for _, counts in steps):
-        fail(f"expected {want} launches per step, got {[c for _, c in steps]}")
+              f"{losses[i]:.6f}, launches {launched(counts)}")
+    if any(launched(counts) != launched(want) for _, counts in steps):
+        fail(f"expected {launched(want)} launches per step, got "
+             f"{[launched(c) for _, c in steps]}")
     in_val = {k: launches[k] - sum(c[k] for _, c in steps) for k in launches}
-    if in_val != val_want:
-        fail(f"expected {val_want} launches in the val pass, got {in_val}")
+    if launched(in_val) != launched(val_want):
+        fail(f"expected {launched(val_want)} launches in the val pass, got "
+             f"{launched(in_val)}")
     if len(losses) != n_steps or not all(np.isfinite(losses)):
         fail(f"train losses {losses}")
     if len(set(losses)) < 2:
@@ -1857,128 +1384,9 @@ def phase_flow_train(torch, cfg, loss_cfg, train_batch, val_batch, smi_line,
           f"({', '.join(f'{x * 1e3:.1f}' for x in timed)}), "
           f"{b * m / mean:.4g} events/s padded ({valid / mean:.4g} valid), "
           f"peak memory {peak / 2**30:.2f} GiB; val pass EPE {epe[0]:.4f} "
-          f"(launches {in_val}); checkpoints {ckpts}; card {smi_line}")
+          f"(launches {launched(in_val)}); checkpoints {ckpts}; card "
+          f"{smi_line}")
     return launches, mean * 1e3
-
-
-def phase_flow_breakdown(torch, cfg, loss_cfg, train_batch,
-                         tag="flow-breakdown"):
-    """Where one train step's time goes, with the batch on the card."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from motionpriorcmax_tpu_torch.losses import focus
-    from motionpriorcmax_tpu_torch.ops import gradients
-    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
-    from motionpriorcmax_tpu_torch.training.loop import to_device
-
-    state = ttn.create_train_state(cfg, "cuda",
-                                   torch.Generator().manual_seed(0))
-    batch = to_device(train_batch, torch.device("cuda"))
-    npos = train_batch["num_pos_events"]
-    gen = torch.Generator().manual_seed(1)
-    spans = defaultdict(list)
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def wrap(name, fn):
-        def inner(*a, **k):
-            s = event()
-            res = fn(*a, **k)
-            spans[name].append((s, event()))
-            return res
-        return inner
-
-    # (module, attribute, span name): functions the step looks up by name.
-    interp = ("softmax interpolation" if loss_cfg.knn_method == "softmax"
-              else "knn + interpolation")
-    targets = [(ttn, "voxelize_batch_on_device", "voxelize"),
-               (ttn, "calculate_trajectories", "trajectories"),
-               (focus, "interpolate_flow", interp),
-               (focus, "warp_events", "warp (LUT gather)"),
-               (focus, "make_iwes", "vote + blur + objective"),
-               (gradients, "focus_objective", "vote + blur + objective"),
-               (focus, "calculate_smooth_loss", "vote + blur + objective"),
-               (torch.Tensor, "backward", "backward"),
-               (state.optimizer, "step", "AdamW")]
-    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
-    unet = state.model.unet
-    starts = []
-    hooks = [unet.register_forward_pre_hook(lambda m, i: starts.append(event())),
-             unet.register_forward_hook(lambda m, i, o: spans["UNet forward"]
-                                        .append((starts.pop(), event())))]
-
-    def step():
-        spans.clear()
-        t0 = time.perf_counter()
-        start = event()
-        ttn.train_step(state, batch, gen, cfg, loss_cfg, npos)
-        end = event()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        parts = {k: sum(s.elapsed_time(e) for s, e in v)
-                 for k, v in spans.items()}
-        parts["rest"] = start.elapsed_time(end) - sum(parts.values())
-        return wall, start.elapsed_time(end), parts
-
-    for mod, attr, name in targets:
-        setattr(mod, attr, wrap(name, getattr(mod, attr)))
-    try:
-        step()                                              # warm-up
-        runs = [step() for _ in range(BREAKDOWN_RUNS)]
-    finally:
-        for mod, attr, fn in originals:
-            if mod is state.optimizer:
-                del mod.step
-            else:
-                setattr(mod, attr, fn)
-        for h in hooks:
-            h.remove()
-    dev_ms = float(np.median([r[1] for r in runs]))
-    print(f"[{tag}] batch on the card, {BREAKDOWN_RUNS} steps after 1 "
-          f"warm-up: "
-          f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
-          f"CUDA events median {dev_ms:.1f} ms")
-    names = ["voxelize", "UNet forward", "trajectories", interp,
-             "warp (LUT gather)", "vote + blur + objective", "backward",
-             "AdamW", "rest"]
-    for name in names:
-        med = float(np.median([r[2].get(name, 0.0) for r in runs]))
-        print(f"[{tag}]   {name:24s} {med:9.2f} ms  "
-              f"{100 * med / dev_ms:5.1f}%")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _, _ = step()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print(f"[{tag}] torch.profiler recorded no device time")
-        return
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[{tag}] torch.profiler, one step: kernels busy "
-          f"{busy_ms:.1f} ms of {wall:.1f} ms wall, idle share "
-          f"{1 - busy_ms / wall:.3f}, {sum(e.count for e in kernels)} "
-          f"kernel launches")
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in kernels[:10]:
-        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:5d}x  {e.key[:80]}")
-    for e in kernels:
-        if any(k in e.key for k in ("iwe_vote", "lut_gather", "lut_segsum",
-                                    "softmax_interp", "voxel_",
-                                    "segment_sum")):
-            print(f"[{tag}]   port kernel {e.key[:60]}: "
-                  f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
-                  f"launches")
-    copies = [e for e in kernels if "copy" in e.key.lower()]
-    print(f"[{tag}]   copy kernels: {sum(e.count for e in copies)} launches, "
-          f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms")
 
 
 def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
@@ -2007,8 +1415,7 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
     times = torch.cat([torch.tensor([0.37]),
                        (torch.arange(nb) + 0.5) / nb]).float()
     want = {**want, **bn_launches(UNET_NORMS, True)}
-    fns = kernel_wrappers()
-    before = {k: f.launches for k, f in fns.items()}
+    before = launch_counts()
     results = {}
     for dev in ("cpu", "cuda"):
         state = ttn.create_train_state(cfg, dev,
@@ -2021,7 +1428,7 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
                          state.model.named_parameters()},
                         {n: b.detach().cpu() for n, b in
                          state.model.named_buffers() if "running" in n})
-    launches = {k: fns[k].launches - before[k] for k in fns}
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
     (l_c, g_c, s_c), (l_g, g_g, s_g) = results["cpu"], results["cuda"]
     loss_rel = abs(l_g - l_c) / abs(l_c)
     grad_rel = max(float((g_g[n] - g_c[n]).abs().max()
@@ -2036,58 +1443,19 @@ def phase_flow_card_vs_cpu(torch, loss_overrides=None, device_voxel=False,
           f"|diff| / max |grad| per tensor {grad_rel:.3e} (bound "
           f"{TOL_TRAIN_GRAD:g}), BN statistics max |diff| / max |stat| per "
           f"buffer {bn_rel:.3e} (bound "
-          f"{TOL_TRAIN_BN:g}); card launches {launches}")
+          f"{TOL_TRAIN_BN:g}); card launches {launched(launches)}")
     if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
             and bn_rel <= TOL_TRAIN_BN):
         fail("card and CPU train steps disagree")
-    if launches != want:
-        fail(f"the card's train step launched {launches}, not {want}")
+    if launched(launches) != launched(want):
+        fail(f"the card's train step launched {launched(launches)}, not "
+             f"{launched(want)}")
 
 
 # ---------------------------------------------------------------------------
 # traj-train: RAFT-Spline training (Tab2L5 experiment), corr-window backward
 # ---------------------------------------------------------------------------
 
-# config/trajectory_inference/val.yaml composed with
-# experiment=raft-spline_evimo2-300ms_ours-selfsup (checkpoint and
-# dataset.path set to 'none'), as a dict: the GPU machine has no yaml
-# (tests/test_torch_raft_train.py checks that the two agree).
-TAB2L5_CONFIG = {
-    "dataset": {"load_voxel_grid": True, "normalize_voxel_grid": True,
-                "path": "none", "photo_augm": False, "return_ev": True,
-                "return_img": True, "name": "evimo2",
-                "extended_voxel_grid": True, "downsample": False,
-                "flow_every_n_ms": 50, "flow_time": 300},
-    "model": {"num_bins": {"context": 41, "correlation": 25},
-              "num_iter": {"train": 12, "test": 12},
-              "correlation": {"use_cosine_sim": False,
-                              "ev": {"target_indices": [8, 16, 24, 32, 40],
-                                     "levels": [1, 1, 1, 1, 4],
-                                     "radius": [4, 4, 4, 4, 4]},
-                              "img": {"levels": 4, "radius": 4}},
-              "hidden": {"dim": 128}, "context": {"dim": 128, "norm": "batch"},
-              "feature": {"dim": 256, "norm": "instance"},
-              "motion": {"dim": 128}, "name": "raft-spline",
-              "curve_type": "BEZIER", "detach_bezier": False,
-              "bezier_degree": 10, "use_boundary_images": False,
-              "use_events": True, "type": "ERAFTPP"},
-    "checkpoint": "none",
-    "hardware": {"num_workers": 4},
-    "batch_size": 8,
-    "training": {"batch_size": 6, "learning_rate": 0.0001,
-                 "weight_decay": 0.0001, "lr_scheduler": {"use": True}},
-    "loss": {"type": "FOCUS", "num_tref": 1, "num_knn": 32, "num_bins": 41,
-             "smooth_weight": 0.06, "lut_superpixel_size": 4,
-             "focus_loss_norm": "l1", "dist_norm": "l2",
-             "scale_iwe_by_dt": True, "mask_image_border": True,
-             "interpolation_scheme": "mean", "smooth_type": "on_flow_to_next",
-             "polarity_aware_batching": True, "patch_size": 4},
-    "run_name": "selfsup_bezier",
-}
-TRAIN_BATCH = TAB2L5_CONFIG["training"]["batch_size"]
-TRAIN_EVENTS = 1 << 19          # per sample, the JAX package's RAFT benchmark
-TRAIN_CAPACITY = 1 << 20        # the CLI's --event-capacity default
-TRAIN_STEPS = 4                 # 1 warm-up + 2 timed + 1 under torch.profiler
 # The one-cycle schedule's length: the 5 steps the recorded
 # TRAJ_SOFTMAX_STEP_LOSSES were taken over (the run stops after TRAIN_STEPS).
 TRAJ_SCHEDULE_STEPS = 5
@@ -2098,26 +1466,16 @@ GT_STEPS_SUPERVISED = 5         # MultiFlow: 500 ms at a 100 ms GT cadence
 # most 2^-7 of the value: 8 significant bits).
 TOL_BWD = 1e-5                  # relative to max(1, max |plain|)
 TOL_BWD_BF16 = 2.0 ** -7        # bf16 d corr, relative likewise
-CORR_KERNELS = ("corr_window_lookup", "corr_window_lookup_bwd")
 # Launches per train step and in the val pass (one batch of 4) of the
 # traj-train paths: 12 iterations, one forward launch for all 4 pyramid
 # levels and one backward launch per level.
 TRAJ_STEP = {"corr_window_lookup": 12, "corr_window_lookup_bwd": 48,
              **EXACT_STEP, **bn_launches(RAFT_NORMS, True)}
-TRAJ_VAL = {**{k: 0 for k in TRAJ_STEP}, "corr_window_lookup": 12,
-            **bn_launches(RAFT_NORMS, False)}
+TRAJ_VAL = {"corr_window_lookup": 12, **bn_launches(RAFT_NORMS, False)}
 TRAJ_SOFTMAX_STEP = {**TRAJ_STEP, "softmax_interp_fwd": 1,
                      "softmax_interp_bwd": 1, "knn_topk": 0}
 TRAJ_SUPERVISED_STEP = {**TRAJ_VAL, "corr_window_lookup_bwd": 48,
                         **bn_launches(RAFT_NORMS, True)}
-
-
-def traj_wrappers():
-    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
-
-    return {"corr_window_lookup": cw.corr_window_lookup,
-            "corr_window_lookup_bwd": cw.corr_window_lookup_bwd,
-            **kernel_wrappers()}
 
 
 def plain_pyramid_lookup(torch, pyramid, coords):
@@ -2247,20 +1605,18 @@ def phase_bwd_timing(torch):
                   fwd_bound_ms=0.0)
     levels, _ = level_set(torch, LEVELS, 400, torch.float32, b)
     slab = torch.empty(b, c_total, H // 8, W // 8, device="cuda")
-    totals["fwd_ms"] = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-        levels, RADIUS, slab), flush)
-    totals["fwd_card_ms"] = time_ms(
+    totals["fwd_ms"], totals["fwd_card_ms"], _ = timers(
         torch, lambda: cw.corr_window_lookup_levels(levels, RADIUS, slab),
-        flush, card=True)
+        flush)
     del slab
     for lvl, (t, h2, w2) in enumerate(LEVELS):
         corr, cx, cy, off = levels[lvl]
         n = corr.shape[0] * b * Q
         f_bound = needed_bytes(torch, corr, cx, cy) / H100_BYTES_PER_S * 1e3
-        k_ms = time_ms(torch, lambda: cw.corr_window_lookup_bwd(
-            corr, cx, cy, RADIUS, g, off), flush)
-        p_ms = time_ms(torch, lambda: cw.corr_window_lookup_bwd_plain(
-            corr, cx, cy, RADIUS, g, off), flush, reps=3, warmup=1)
+        k_ms = timers(torch, lambda: cw.corr_window_lookup_bwd(
+            corr, cx, cy, RADIUS, g, off), flush)[0]
+        p_ms = timers(torch, lambda: cw.corr_window_lookup_bwd_plain(
+            corr, cx, cy, RADIUS, g, off), flush, reps=3, warmup=1)[0]
         d = torch.arange(-RADIUS, RADIUS + 1, device="cuda",
                          dtype=torch.float32)
         side = 2 * RADIUS + 1
@@ -2272,9 +1628,9 @@ def phase_bwd_timing(torch):
         out = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                             align_corners=True)
         gout = torch.randn_like(out)
-        l_ms = time_ms(torch, lambda: torch.autograd.grad(
+        l_ms = timers(torch, lambda: torch.autograd.grad(
             out, (img, grid), gout, retain_graph=True), flush, reps=5,
-            warmup=1)
+            warmup=1)[0]
         nbytes, bound = bwd_bound(torch, corr, cx, cy)
         print(f"[bwd-timing] level {lvl + 1} N={n} map {h2}x{w2} f32: "
               f"kernel={k_ms * 1e3:.1f} us bound={bound * 1e3:.1f} us "
@@ -2374,7 +1730,6 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
     validation metrics are finite and the checkpoint is written, and the
     first steps' losses are within TOL_STEP_LOSS of `want_losses` when
     given.  Returns the kernels' launch counts over the run."""
-    import functools
     import tempfile
 
     from torch.autograd import DeviceType
@@ -2385,6 +1740,7 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
     from motionpriorcmax_tpu_torch.training.loop import train_traj
     from motionpriorcmax_tpu_torch.training.raft_spline import \
         create_raft_train_state
+    from motionpriorcmax_tpu_torch.utils import profiling
 
     cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W),
                                               TRAJ_SCHEDULE_STEPS)
@@ -2402,14 +1758,12 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
               model.update_block.encoder.convc1.weight):
         hooks.append(p.register_hook(
             lambda grad: seen_bwd.add(tf32_flags(torch))))
-    fns = traj_wrappers()
     marks = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def mark():
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(),
-                      {k: f.launches for k, f in fns.items()}))
+        marks.append((time.perf_counter(), launch_counts()))
 
     def batches():
         for i in range(TRAIN_STEPS):
@@ -2430,13 +1784,12 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
     with tempfile.TemporaryDirectory() as workdir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for f in fns.values():
-            f.launches = 0
+        profiling.reset()
         train_traj(state, batches(), workdir, max_steps=TRAIN_STEPS,
                    loss_cfg=None if supervised else loss_cfg,
                    num_pos_events=train_batch.get("num_pos_events", -1),
                    log_every=1, val_every=TRAIN_STEPS, validate=validate)
-        launches = {k: f.launches for k, f in fns.items()}
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         with open(f"{workdir}/scalars.jsonl") as fh:
             recs = [json.loads(line) for line in fh]
@@ -2454,12 +1807,14 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
                 if i == TRAIN_STEPS - 1 else "")
         print(f"[{tag}] step {i}{note}: {dt * 1e3:.1f} ms (host batch to "
               f"logged loss), loss {losses[i]:.6f}, launches "
-              f"{ {k: v for k, v in counts.items() if v} }")
-    if any(counts != want for _, counts in steps):
-        fail(f"expected {want} launches per step, got {[c for _, c in steps]}")
+              f"{launched(counts)}")
+    if any(launched(counts) != launched(want) for _, counts in steps):
+        fail(f"expected {launched(want)} launches per step, got "
+             f"{[launched(c) for _, c in steps]}")
     in_val = {k: launches[k] - sum(c[k] for _, c in steps) for k in launches}
-    if in_val != TRAJ_VAL:
-        fail(f"expected {TRAJ_VAL} launches in the val pass, got {in_val}")
+    if launched(in_val) != launched(TRAJ_VAL):
+        fail(f"expected {launched(TRAJ_VAL)} launches in the val pass, got "
+             f"{launched(in_val)}")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"train losses {losses}")
     if len(set(losses)) < 2:
@@ -2515,170 +1870,9 @@ def phase_traj_train(torch, cfg_tree, train_batch, val_samples, smi_line,
           f"forward {sorted(seen_fwd)} backward {sorted(seen_bwd)}; val pass "
           f"({len(val_samples)} samples, {val_iters} iterations) "
           f"val/masked_TEPE {val['val/masked_TEPE']:.4f} (launches "
-          f"{ {k: v for k, v in in_val.items() if v} }); checkpoints {ckpts};"
+          f"{launched(in_val)}); checkpoints {ckpts};"
           f" card {smi_line}")
     return launches
-
-
-def phase_traj_breakdown(torch, cfg_tree, host_batch, tag="traj-breakdown",
-                         supervised=False):
-    """Phase 23: where one train step's time goes, with the batch on the
-    card: CUDA events around the encoders, volume, pyramid, the refinement
-    loop's lookups and update blocks, upsample, the loss (the focus loss,
-    or the supervised step's curve evaluation), backward (and the backward
-    kernel inside it) and AdamW; for the exact-KNN point the dense d corr
-    accumulation timed apart; then torch.profiler over one step."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from motionpriorcmax_tpu_torch.cli.main import traj_train_configs
-    from motionpriorcmax_tpu_torch.models.raft_spline import raft
-    from motionpriorcmax_tpu_torch.ops.cuda import corr_window as cw
-    from motionpriorcmax_tpu_torch.training import raft_spline as trs
-    from motionpriorcmax_tpu_torch.training.loop import to_device
-
-    cfg, tc, loss_cfg = traj_train_configs(cfg_tree, (H, W),
-                                              TRAJ_SCHEDULE_STEPS)
-    state = trs.create_raft_train_state(cfg, tc, "cuda",
-                                        torch.Generator().manual_seed(0))
-    keys = (("ev_repr", "flow", "flow_timestamps") if supervised
-            else ("ev_repr", "events", "lut_cell_ends"))
-    batch = to_device({k: host_batch[k] for k in keys}, torch.device("cuda"))
-    npos = host_batch.get("num_pos_events", -1)
-    gen = torch.Generator().manual_seed(1)
-    spans = defaultdict(list)
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def wrap(name, fn):
-        def inner(*a, **k):
-            s = event()
-            res = fn(*a, **k)
-            spans[name].append((s, event()))
-            return res
-        inner.launches = getattr(fn, "launches", 0)
-        return inner
-
-    loss_name = "curve at the GT times" if supervised else \
-        "focus loss"
-    targets = [(raft, "compute_corr_volume", "corr volume"),
-               (raft, "build_corr_pyramid", "pyramid"),
-               (raft, "lookup_corr_pyramid", "lookup (forward kernels)"),
-               (raft, "cvx_upsample", "upsample"),
-               (trs, "cvx_upsample", "upsample"),
-               (trs, "curve_flow_from_reference" if supervised
-                else "curve_focus_loss", loss_name),
-               (cw, "corr_window_lookup_bwd", "backward kernel"),
-               (torch.Tensor, "backward", "backward"),
-               (state.optimizer, "step", "AdamW")]
-    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
-    starts = defaultdict(list)
-    hooks = []
-    names = {"fnet_ev": "feature encoder", "cnet": "context encoder",
-             "update_block": "update blocks"}
-    for attr, name in names.items():
-        mod = getattr(state.model, attr)
-        hooks.append(mod.register_forward_pre_hook(
-            lambda m, i, name=name: starts[name].append(event())))
-        hooks.append(mod.register_forward_hook(
-            lambda m, i, o, name=name: spans[name].append(
-                (starts[name].pop(), event()))))
-
-    def step():
-        spans.clear()
-        t0 = time.perf_counter()
-        start = event()
-        if supervised:
-            trs.raft_supervised_train_step(state, batch)
-        else:
-            trs.raft_train_step(state, batch, gen, loss_cfg, npos)
-        end = event()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        parts = {k: sum(s.elapsed_time(e) for s, e in v)
-                 for k, v in spans.items()}
-        total = start.elapsed_time(end)
-        # The backward kernel runs inside the backward span.
-        parts["rest"] = total - sum(v for k, v in parts.items()
-                                    if k != "backward kernel")
-        return wall, total, parts
-
-    for mod, attr, name in targets:
-        setattr(mod, attr, wrap(name, getattr(mod, attr)))
-    try:
-        with warnings.catch_warnings():
-            # The schedule warns that the wrapped optimizer.step was
-            # replaced after it was built; the wrapper calls it unchanged.
-            warnings.simplefilter("ignore", UserWarning)
-            torch.cuda.reset_peak_memory_stats()
-            step()                                          # warm-up
-            runs = [step() for _ in range(BREAKDOWN_RUNS)]
-            peak = torch.cuda.max_memory_allocated()
-    finally:
-        for mod, attr, fn in originals:
-            if mod is state.optimizer:
-                del mod.step
-            else:
-                setattr(mod, attr, fn)
-        for h in hooks:
-            h.remove()
-    dev_ms = float(np.median([r[1] for r in runs]))
-    point = ("supervised, gamma 0.8" if supervised
-             else f"knn_method {loss_cfg.knn_method}")
-    print(f"[{tag}] {point}, batch on the card, {BREAKDOWN_RUNS} steps after "
-          f"1 warm-up: "
-          f"wall median {np.median([r[0] for r in runs]):.1f} ms, between "
-          f"CUDA events median {dev_ms:.1f} ms, peak memory "
-          f"{peak / 2**30:.2f} GiB")
-    for name in ("feature encoder", "context encoder", "corr volume",
-                 "pyramid", "lookup (forward kernels)", "update blocks",
-                 "upsample", loss_name, "backward", "backward kernel",
-                 "AdamW", "rest"):
-        med = float(np.median([r[2].get(name, 0.0) for r in runs]))
-        note = " (inside backward)" if name == "backward kernel" else ""
-        print(f"[{tag}]   {name:26s} {med:9.2f} ms  "
-              f"{100 * med / dev_ms:5.1f}%{note}")
-
-    if not supervised and loss_cfg.knn_method == "exact":
-        # The dense cotangent: each iteration's backward returns a level-1
-        # d corr [5, B, 3072, 48, 64] that autograd adds into the volume's.
-        a = torch.zeros(5, TRAIN_BATCH, Q, H // 8, W // 8, device="cuda")
-        bvol = torch.ones_like(a)
-        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-        add_ms = time_ms(torch, lambda: a.add_(bvol), flush, reps=5, warmup=1)
-        print(f"[{tag}] d corr accumulation: one add of two "
-              f"{a.numel() * 4 / 1e9:.2f} GB level-1 cotangents "
-              f"{add_ms:.2f} ms; x {cfg.iters - 1} per step = "
-              f"{add_ms * (cfg.iters - 1):.1f} ms")
-        del a, bvol, flush
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _, _ = step()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print(f"[{tag}] torch.profiler recorded no device time")
-        return
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[{tag}] torch.profiler, one step: kernels busy {busy_ms:.1f} ms "
-          f"of {wall:.1f} ms wall, idle share {1 - busy_ms / wall:.3f}, "
-          f"{sum(e.count for e in kernels)} kernel launches")
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in kernels[:12]:
-        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:5d}x  {e.key[:80]}")
-    for e in kernels:
-        if any(k in e.key for k in ("corr_window", "iwe_vote", "lut_gather",
-                                    "lut_segsum", "softmax_interp")):
-            print(f"[{tag}]   port kernel {e.key[:60]}: "
-                  f"{e.self_device_time_total / 1e3:.2f} ms in {e.count} "
-                  "launches")
 
 
 def tiny_traj_batches(cfg, h, w):
@@ -2729,19 +1923,18 @@ def phase_traj_card_vs_cpu(torch):
     selfsup, supervised = tiny_traj_batches(cfg, h, w)
     times = torch.tensor([0.37, 0.1, 0.3, 0.5, 0.7, 0.9])
     levels = max(cfg.ev_levels) * cfg.iters
-    fns = traj_wrappers()
     for kind, host, want in (
             ("raft_train_step", selfsup,
-             {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
+             {"corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels, "iwe_vote_fwd": 2,
               "iwe_vote_bwd": 2, "lut_gather_fwd": 1, "lut_segsum_bwd": 1,
               "knn_topk": 1, **bn_launches(RAFT_NORMS, True)}),
             ("raft_supervised_train_step", supervised,
-             {**{k: 0 for k in fns}, "corr_window_lookup": cfg.iters,
+             {"corr_window_lookup": cfg.iters,
               "corr_window_lookup_bwd": levels,
               **bn_launches(RAFT_NORMS, True)})):
         results = {}
-        before = {k: f.launches for k, f in fns.items()}
+        before = launch_counts()
         for dev in ("cpu", "cuda"):
             state = trs.create_raft_train_state(
                 cfg, trs.RAFTTrainConfig(), dev,
@@ -2758,7 +1951,8 @@ def phase_traj_card_vs_cpu(torch):
                              state.model.named_parameters()},
                             {n: b.detach().cpu() for n, b in
                              state.model.named_buffers() if "running" in n})
-        launches = {k: fns[k].launches - before[k] for k in fns}
+        launches = launched({k: n - before[k]
+                             for k, n in launch_counts().items()})
         (l_c, g_c, s_c), (l_g, g_g, s_g) = results["cpu"], results["cuda"]
         top = max(float(g.abs().max()) for g in g_c.values())
         loss_rel = abs(l_g - l_c) / abs(l_c)
@@ -2775,11 +1969,11 @@ def phase_traj_card_vs_cpu(torch):
               f"{TOL_TRAIN_LOSS:g}), gradients max |diff| / max |grad| per "
               f"tensor {grad_rel:.3e} (bound {TOL_TRAIN_GRAD:g}), BN "
               f"statistics {bn_rel:.3e} (bound {TOL_TRAIN_BN:g}); card "
-              f"launches { {k: v for k, v in launches.items() if v} }")
+              f"launches {launches}")
         if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
                 and bn_rel <= TOL_TRAIN_BN):
             fail(f"card and CPU {kind} disagree")
-        if launches != want:
+        if launches != launched(want):
             fail(f"the card's {kind} launched {launches}, not {want}")
 
 
@@ -2788,64 +1982,11 @@ def phase_traj_card_vs_cpu(torch):
 # the learning checks, the host data path
 # ---------------------------------------------------------------------------
 
-# Row 5 against its plain version: both add each cell's cotangents in f32,
-# the kernel with atomics in a run-dependent order, the plain version's
-# index_put_(accumulate=True) in its own.  At the path's shapes a cell
-# holds a few events; with every cotangent on 8 cells per sample a cell
-# holds ~2^17 normal values, whose f32 sums in two orders differ by
-# ~sqrt(n) ulps of the partial sums (~1e-5 of the largest cell sum).
-TOL_SEGMENT_SUM = 1e-5             # max |diff| / max |plain|
-TOL_SEGMENT_SUM_FEW = 1e-4         # the 8-cell case, likewise
-TRAJ_LUT = (41 * (H // 4), W // 4)  # the traj-train LUT: 41 bins x 96, 128
 # The JAX package's learning checks, at their geometry
 # (tests/test_focus_loss.py, test_flow_recovery.py,
 # test_unet_selfsup_learning.py).
 LEARN_H, LEARN_W, LEARN_BINS = 32, 48, 5
 HOST_BATCHES = 3                   # loader batches timed per data case
-
-
-def segment_sum_inputs(torch, rows, cols, valid, seed):
-    """Cotangents like the path's: normal, zero on padding rows."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    gev = torch.randn(*rows.shape, 2, device="cuda", generator=g)
-    return gev * valid[..., None]
-
-
-def segment_sum_cases(torch, unsorted_batch, loss_cfg):
-    """Row 5's inputs, {label: (rows, cols, g [B, M, 2], R, X)}:
-      path    phase 8's samples collated without the sort (time order per
-              half), cotangents zero on the padding rows (segment_sum_inputs)
-      skewed  the same events through skewed_events, still in time order
-      traj    the traj-train shape: B=6, 2^19 uniform events per sample in
-              capacity 2^20 (the other half padding), LUT [3936, 128]"""
-    from motionpriorcmax_tpu_torch.losses.focus import lut_indices
-
-    nb, sp = loss_cfg.num_bins, loss_cfg.lut_superpixel_size
-    h, w = loss_cfg.image_shape
-    r, x = nb * (h // sp), w // sp
-    out = {}
-    for label, ev, seed in (
-            ("path", unsorted_batch["events"], 31),
-            ("skewed", skewed_events(unsorted_batch["events"], h, w, 12), 34)):
-        events = torch.from_numpy(ev).cuda()
-        rows, cols = lut_indices(loss_cfg, events, nb, sorted_layout=False)
-        gev = segment_sum_inputs(torch, rows, cols, events[..., 5], seed)
-        out[label] = (rows, cols, gev, r, x)
-    gen = torch.Generator(device="cuda").manual_seed(32)
-    tb, tr, tx = TRAIN_BATCH, *TRAJ_LUT
-    t_rows = torch.randint(0, tr, (tb, TRAIN_CAPACITY), device="cuda",
-                           generator=gen, dtype=torch.int32)
-    t_cols = torch.randint(0, tx, (tb, TRAIN_CAPACITY), device="cuda",
-                           generator=gen, dtype=torch.int32)
-    t_valid = (torch.arange(TRAIN_CAPACITY, device="cuda")
-               % (TRAIN_CAPACITY // 2) < TRAIN_EVENTS // 2).float()
-    t_valid = t_valid[None].expand(tb, -1)
-    t_rows = torch.where(t_valid > 0, t_rows, 0).int()
-    t_cols = torch.where(t_valid > 0, t_cols, 0).int()
-    out["traj"] = (t_rows, t_cols,
-                   segment_sum_inputs(torch, t_rows, t_cols, t_valid, 33),
-                   tr, tx)
-    return out
 
 
 def segment_sum_bound_ms(g, rr, xx):
@@ -2921,20 +2062,19 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
         def kernel():
             return ss.grid_segment_sum(rws, cls, g, rr, xx)
 
-        k_ms = time_ms(torch, kernel, flush)
-        card_ms = time_ms(torch, kernel, flush, card=True)
+        k_ms, card_ms, _ = timers(torch, kernel, flush)
         bnd, nbytes = segment_sum_bound_ms(g, rr, xx)
         nums = {"ms": k_ms, "card_ms": card_ms, "bound_ms": bnd}
         line = (f"[segsum-timing] {label}: kernel={k_ms * 1e3:.1f} us "
                 f"(card {card_ms * 1e3:.1f} us) bound={bnd * 1e3:.1f} us "
                 f"({nbytes / 1e6:.1f} MB, bytes)")
         if plain:
-            nums["plain_ms"] = time_ms(
+            nums["plain_ms"] = timers(
                 torch, lambda: ss.segment_sum_plain(rws, cls, g, rr, xx),
-                flush, reps=5, warmup=1)
-            nums["library_ms"] = time_ms(torch, gather_bwd(rws, cls, g, rr,
-                                                           xx),
-                                         flush, reps=5, warmup=1)
+                flush, reps=5, warmup=1)[0]
+            nums["library_ms"] = timers(torch, gather_bwd(rws, cls, g, rr,
+                                                          xx),
+                                        flush, reps=5, warmup=1)[0]
             line += (f" plain={nums['plain_ms'] * 1e3:.1f} us library "
                      f"(torch.gather's backward, scatter_add_)="
                      f"{nums['library_ms'] * 1e3:.1f} us")
@@ -2956,13 +2096,14 @@ def phase_segment_sum(torch, loss_cfg, unsorted_batch):
     # zero skip saves: ~48k same-address atomics per sample), and with no
     # padding at all (the padding rows drawn as valid events).
     g_padnz = torch.where(valid[..., None] > 0, gev, torch.randn_like(gev))
-    out["padding_cotangent_nonzero_ms"] = time_ms(
-        torch, lambda: ss.grid_segment_sum(rows, cols, g_padnz, r, x), flush)
+    out["padding_cotangent_nonzero_ms"] = timers(
+        torch, lambda: ss.grid_segment_sum(rows, cols, g_padnz, r, x),
+        flush)[0]
     full_r = torch.where(valid > 0, rows, torch.randint_like(rows, 0, r))
     full_c = torch.where(valid > 0, cols, torch.randint_like(cols, 0, x))
-    out["no_padding_ms"] = time_ms(
+    out["no_padding_ms"] = timers(
         torch, lambda: ss.grid_segment_sum(full_r, full_c, g_padnz, r, x),
-        flush)
+        flush)[0]
     print(f"[segsum-timing] padding rows ({pad:.3f} of the events, all in "
           f"cell (0, 0)): skipped (the path) {out['ms'] * 1e3:.1f} us, "
           f"with a nonzero cotangent "
@@ -3272,16 +2413,6 @@ def phase_host_data(torch, cfg, loss_cfg, step_ms):
 # dsec-infer: DSEC benchmark inference (config/dsec_inference.yaml)
 # ---------------------------------------------------------------------------
 
-# config/dsec_inference.yaml as a dict: the GPU machine has no yaml
-# (tests/test_torch_port_isolation.py checks that the two agree).
-DSEC_INFERENCE_CONFIG = {
-    "common": {"height": 480, "width": 640, "num_bins": 15, "patch_size": 4},
-    "model": {"num_basis": 1, "basis_type": "polynomial", "lr": 0.0001,
-              "model_type": "default",
-              "ckpt_path": "weights/unet_dsec_ours-poly-k1_Tab4L7.pth"},
-    "data": {"root_dir": "data/dsec", "norm_type": "mean_std"},
-    "output_dir": "runs/dsec_inference",
-}
 INFER_WINDOWS = 9                  # 1 warm-up + 8 timed
 INFER_RAW_EVENTS = (500_000, 3_000_000)   # raw events per 100 ms window
 # The voxel vote at B=1: N = 0, 1, one past a 4096-event chunk, ~1M, ~3M.
@@ -3349,13 +2480,13 @@ def phase_infer_vote(torch):
             idx, val = idx.reshape(-1), val.reshape(-1)
             img = torch.zeros(nb * h * w, device="cuda")
             nbytes = 24 * n + 4 * nb * h * w
+            k_ms, card_ms, _ = timers(
+                torch, lambda: vv.voxel_vote(ev, nb, h, w), flush)
             case.update(time_kernel(
-                torch, f"voxel_vote inference B=1 N={n}",
-                lambda: vv.voxel_vote(ev, nb, h, w),
+                torch, f"voxel_vote inference B=1 N={n}", k_ms,
                 lambda: vv.voxel_vote_plain(ev, nb, h, w),
                 lambda: img.zero_().index_add_(0, idx, val), flush, nbytes))
-            case["card_ms"] = time_ms(torch, lambda: vv.voxel_vote(
-                ev, nb, h, w), flush, card=True)
+            case["card_ms"] = card_ms
             print(f"[infer-vote] B=1 N={n}: card time "
                   f"{case['card_ms'] * 1e3:.1f} us, bound "
                   f"{case['bound_ms'] * 1e3:.1f} us "
@@ -3460,63 +2591,6 @@ def check_pngs(out_dir, rows):
     return largest
 
 
-# The parts of a dsec-infer window, in order.
-INFER_PARTS = ("pack", "h2d", "voxel_vote", "normalize", "unet", "flow",
-               "d2h", "png")
-
-
-@contextlib.contextmanager
-def infer_part_marks(state, seq, mark):
-    """Yields `seq` wrapped so that infer_sequence's run over it calls
-    `mark(part)` at the end of each of INFER_PARTS: the functions that
-    infer_window and infer_sequence look up by name at call time are
-    wrapped (and the model gets a forward hook), so the CLI's own code runs
-    unchanged.  pack: the sample; h2d: the events to the card, up to the
-    voxel vote; unet: the model's forward; flow: from the coefficients;
-    d2h: the flow to the host, up to the 60 px cap; png: the cap, the
-    encoding and the write."""
-    from motionpriorcmax_tpu_torch.ops import events
-    from motionpriorcmax_tpu_torch.training import trajectory_net as ttn
-    from motionpriorcmax_tpu_torch.utils import flow_io
-
-    def around(fn, before, after):
-        def inner(*a, **k):
-            if before:
-                mark(before)
-            res = fn(*a, **k)
-            if after:
-                mark(after)
-            return res
-        return inner
-
-    class Marked:
-        def __len__(self):
-            return len(seq)
-
-        def __getitem__(self, i):
-            sample = seq[i]
-            mark("pack")
-            return sample
-
-    # (module, attribute, part ending at its call, part ending at its return)
-    targets = [(events, "voxel_grid_from_events", "h2d", "voxel_vote"),
-               (events, "normalize_voxel_grid", None, "normalize"),
-               (ttn, "flow_from_coeffs", None, "flow"),
-               (flow_io, "scale_optical_flow", "d2h", None),
-               (flow_io, "save_flow_png", None, "png")]
-    originals = [(mod, attr, getattr(mod, attr))
-                 for mod, attr, _, _ in targets]
-    hook = state.model.register_forward_hook(lambda m, i, o: mark("unet"))
-    try:
-        for mod, attr, before, after in targets:
-            setattr(mod, attr, around(getattr(mod, attr), before, after))
-        yield Marked()
-    finally:
-        for mod, attr, fn in originals:
-            setattr(mod, attr, fn)
-        hook.remove()
-
-
 def phase_infer(torch, smi_line):
     """dsec-infer end to end at full width: dsec_inference.yaml (f32 UNet
     64-1024, B=1, 480x640), seeded weights, the CLI's per-sequence function
@@ -3530,7 +2604,7 @@ def phase_infer(torch, smi_line):
     from pathlib import Path
 
     from motionpriorcmax_tpu_torch.cli.main import infer_sequence
-    from motionpriorcmax_tpu_torch.ops.cuda import voxel_vote as vv
+    from motionpriorcmax_tpu_torch.utils import profiling
 
     norm = DSEC_INFERENCE_CONFIG["data"]["norm_type"]
     t0 = time.perf_counter()
@@ -3544,7 +2618,6 @@ def phase_infer(torch, smi_line):
     seen = set()
     hook = state.model.unet.register_forward_pre_hook(
         lambda mod, inp: seen.add(tf32_flags(torch)))
-    fns = kernel_wrappers()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         write_timestamp_csv(tmp / "seq.csv", rows)
@@ -3558,13 +2631,12 @@ def phase_infer(torch, smi_line):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for f in fns.values():
-            f.launches = 0
+        profiling.reset()
         t_run = time.perf_counter()
         with infer_part_marks(state, seq, stamp) as marked:
             n = infer_sequence(state, cfg, marked, tmp / "flow", norm,
                                torch.device("cuda"))
-        launches = {k: f.launches for k, f in fns.items()}
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         per_window = np.diff([t_run] + stamps)
         largest = check_pngs(tmp / "flow", rows)
@@ -3611,9 +2683,9 @@ def phase_infer(torch, smi_line):
     if n != INFER_WINDOWS:
         fail(f"{n} windows inferred, not {INFER_WINDOWS}")
     per = {k: v / n for k, v in launches.items()}
-    if per != {k: float(v) for k, v in INFER_STEP.items()}:
-        fail(f"expected {INFER_STEP} launches per window, got {launches} "
-             f"over {n} windows")
+    if launched(per) != launched(INFER_STEP):
+        fail(f"expected {launched(INFER_STEP)} launches per window, got "
+             f"{launched(launches)} over {n} windows")
     if seen != {(False, False)}:
         fail(f"the f32 UNet ran with TF32 flags (matmul, cudnn) {seen}")
     for i, dt in enumerate(per_window):
@@ -3747,8 +2819,7 @@ PANEL_IMAGES = ("0_unwarped", "1_gt_iwe", "2_iwe", "3_gt_flow", "4_flow")
 # flow), and with knn_method softmax and the voxel grid voted in the
 # render (one softmax forward for the step and one for the GT IWE, one
 # voxel vote for both the step and the predicted flow).
-RENDER_EXACT = {**{k: 0 for k in EXACT_STEP}, "iwe_vote_fwd": 5,
-                "lut_gather_fwd": 1, "knn_topk": 2,
+RENDER_EXACT = {"iwe_vote_fwd": 5, "lut_gather_fwd": 1, "knn_topk": 2,
                 "flax_bn_apply": 2 * UNET_NORMS}
 RENDER_SOFTMAX = {**RENDER_EXACT, "softmax_interp_fwd": 2, "voxel_vote": 1,
                   "knn_topk": 0}
@@ -3779,6 +2850,7 @@ def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
     from motionpriorcmax_tpu_torch.data.loader import DataLoader
     from motionpriorcmax_tpu_torch.training import loop
     from motionpriorcmax_tpu_torch.training.loop import train_flow
+    from motionpriorcmax_tpu_torch.utils import profiling
     from motionpriorcmax_tpu_torch.utils.png16 import read_png_rgb
 
     h, w = cfg.image_shape
@@ -3789,7 +2861,6 @@ def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
                             loss_cfg.image_shape, loss_cfg.num_bins,
                             loss_cfg.lut_superpixel_size),
                         pin_memory=True)
-    fns = kernel_wrappers()
     renders, collates, panel_s = [], [], []
     make_render = loop.make_flow_render_fn
     log_images = loop.log_flow_epoch_images
@@ -3799,13 +2870,13 @@ def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
 
         def run(batch):
             torch.cuda.synchronize()
-            before = {k: f.launches for k, f in fns.items()}
+            before = launch_counts()
             t0 = time.perf_counter()
             out = render(batch)
             torch.cuda.synchronize()
             renders.append(((time.perf_counter() - t0) * 1e3,
-                            {k: f.launches - before[k]
-                             for k, f in fns.items()}))
+                            {k: n - before[k]
+                             for k, n in launch_counts().items()}))
             return out
         return run
 
@@ -3825,13 +2896,12 @@ def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
                                                             timed_log)
     try:
         with tempfile.TemporaryDirectory() as workdir:
-            for f in fns.values():
-                f.launches = 0
+            profiling.reset()
             train_flow(cfg, loss_cfg, [train_batch], [val_batch], workdir,
                        device="cuda", max_epochs=1, num_pos_events=npos,
                        log_every=1, seed=0, image_log_dataset=samples,
                        image_log_collate=timed_collate)
-            launches = {k: f.launches for k, f in fns.items()}
+            launches = launch_counts()
             names = sorted(os.listdir(f"{workdir}/images"))
             images = [read_png_rgb(f"{workdir}/images/{n}") for n in names]
     finally:
@@ -3848,10 +2918,11 @@ def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
              f"uint8: {bad}")
     flat = [n for n, im in zip(names, images) if im.min() == im.max()]
     per_render = [c for _, c in renders]
-    if len(renders) != PANEL_SAMPLES or any(c != want_render
-                                            for c in per_render):
-        fail(f"[{tag}] expected {PANEL_SAMPLES} renders of {want_render} "
-             f"launches, got {per_render}")
+    if len(renders) != PANEL_SAMPLES or any(
+            launched(c) != launched(want_render) for c in per_render):
+        fail(f"[{tag}] expected {PANEL_SAMPLES} renders of "
+             f"{launched(want_render)} launches, got "
+             f"{[launched(c) for c in per_render]}")
     render_ms = [t for t, _ in renders]
     mean_ms = float(np.mean(render_ms[1:]))
     write_ms = (panel_s[0] * 1e3 - sum(collates) - sum(render_ms)) \
@@ -3865,10 +2936,9 @@ def phase_panels(torch, cfg, loss_cfg, samples, train_batch, val_batch,
           f"first {mean_ms:.1f}), collate "
           f"{', '.join(f'{t:.1f}' for t in collates)} ms, colorize + PNG "
           f"~{write_ms:.1f} ms; the panel {panel_s[0]:.2f} s; launches per "
-          f"render { {k: v for k, v in want_render.items() if v} }; the "
-          f"epoch's launches { {k: v for k, v in launches.items() if v} }; "
-          f"card {smi_line}")
-    return {k: v for k, v in want_render.items() if v}, mean_ms
+          f"render {launched(want_render)}; the epoch's launches "
+          f"{launched(launches)}; card {smi_line}")
+    return launched(want_render), mean_ms
 
 
 def phase_panels_card_vs_cpu(torch):
@@ -3884,7 +2954,6 @@ def phase_panels_card_vs_cpu(torch):
     h, w, nb = 32, 48, 15
     times = torch.cat([torch.tensor([0.37]),
                        (torch.arange(nb) + 0.5) / nb]).float()
-    fns = kernel_wrappers()
     worst = 0.0
     for knn, device_voxel, want in (("exact", False, RENDER_EXACT),
                                     ("softmax", True, RENDER_SOFTMAX)):
@@ -3901,13 +2970,14 @@ def phase_panels_card_vs_cpu(torch):
                                (h, w), nb, loss_cfg.lut_superpixel_size)
                            ).collate(sample)
         out = {}
-        before = {k: f.launches for k, f in fns.items()}
+        before = launch_counts()
         for dev in ("cpu", "cuda"):
             state = ttn.create_train_state(cfg, dev,
                                            torch.Generator().manual_seed(1))
             out[dev] = make_flow_render_fn(state, loss_cfg,
                                            times=times)(batch)
-        launches = {k: fns[k].launches - before[k] for k in fns}
+        launches = launched({k: n - before[k]
+                             for k, n in launch_counts().items()})
         if set(out["cpu"]) != set(out["cuda"]) or len(out["cpu"]) != 5:
             fail(f"render outputs {sorted(out['cpu'])} / "
                  f"{sorted(out['cuda'])}")
@@ -3919,12 +2989,12 @@ def phase_panels_card_vs_cpu(torch):
               f"{'device' if device_voxel else 'host'} voxel: max |diff| / "
               f"max |cpu| per image "
               f"{ {k: f'{v:.2e}' for k, v in diffs.items()} } (bound "
-              f"{TOL_RENDER:g}); card launches "
-              f"{ {k: v for k, v in launches.items() if v} }")
+              f"{TOL_RENDER:g}); card launches {launches}")
         if not max(diffs.values()) <= TOL_RENDER:
             fail("card and CPU renders disagree")
-        if launches != want:
-            fail(f"the card's render launched {launches}, not {want}")
+        if launches != launched(want):
+            fail(f"the card's render launched {launches}, not "
+                 f"{launched(want)}")
     return worst
 
 
@@ -3982,10 +3052,10 @@ def phase_bf16_lookup(torch, levels, c_total, tag):
                       out_p, TOL_KERNEL, tag)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     levels32 = [(c.float(), cx, cy, off) for c, cx, cy, off in levels]
-    ms = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-        levels, RADIUS, out_k), flush, card=True)
-    ms32 = time_ms(torch, lambda: cw.corr_window_lookup_levels(
-        levels32, RADIUS, out_k), flush, card=True)
+    ms = timers(torch, lambda: cw.corr_window_lookup_levels(
+        levels, RADIUS, out_k), flush)[1]
+    ms32 = timers(torch, lambda: cw.corr_window_lookup_levels(
+        levels32, RADIUS, out_k), flush)[1]
     nbytes = sum(needed_bytes(torch, c, cx, cy) for c, cx, cy, _ in levels)
     bound = nbytes / H100_BYTES_PER_S * 1e3
     del flush, levels32, out_k, out_p
@@ -4029,9 +3099,9 @@ def phase_bf16_bwd(torch, levels, c_total, tag):
         for corr, cx, cy, off in lv:
             cw.corr_window_lookup_bwd(corr, cx, cy, RADIUS, g, off)
 
-    ms = time_ms(torch, lambda: iteration(levels), flush, card=True)
+    ms = timers(torch, lambda: iteration(levels), flush)[1]
     levels32 = [(c.float(), cx, cy, off) for c, cx, cy, off in levels]
-    ms32 = time_ms(torch, lambda: iteration(levels32), flush, card=True)
+    ms32 = timers(torch, lambda: iteration(levels32), flush)[1]
     bound = sum(bwd_bound(torch, c, cx, cy)[1] for c, cx, cy, _ in levels)
     bound32 = sum(bwd_bound(torch, c, cx, cy)[1]
                   for c, cx, cy, _ in levels32)
@@ -4257,6 +3327,7 @@ def rank_main(rank: int, port: int, workdir: str) -> int:
     from motionpriorcmax_tpu_torch.parallel import (initialize_distributed,
                                                     make_mesh, shard_batch)
     from motionpriorcmax_tpu_torch.training.loop import to_device, train_flow
+    from motionpriorcmax_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     dev = initialize_distributed(f"127.0.0.1:{port}", PAR_RANKS, rank,
@@ -4267,7 +3338,6 @@ def rank_main(rank: int, port: int, workdir: str) -> int:
                for name in ("sorted", "unsorted", "traj")}
     scfg, sloss = flow_configs({**DSEC_CONFIG, "loss": {
         **DSEC_CONFIG["loss"], "knn_method": "softmax"}})
-    fns = traj_wrappers()
     out = {"cases": {}, "setup_s": time.perf_counter() - t0}
     for name, path, shape, which, _ in PAR_CASES:
         mesh = make_mesh(*shape)
@@ -4281,15 +3351,14 @@ def rank_main(rank: int, port: int, workdir: str) -> int:
         torch.cuda.reset_peak_memory_stats()
         rec = {"launches": [], "ms": [], "bytes": []}
         for i in range(PAR_STEPS):
-            for f in fns.values():
-                f.launches = 0
+            profiling.reset()
             b0 = mesh.reduced_bytes
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             loss = float(step(state, local, npos, mesh))
             torch.cuda.synchronize()
             rec["ms"].append((time.perf_counter() - t1) * 1e3)
-            rec["launches"].append({k: f.launches for k, f in fns.items()})
+            rec["launches"].append(launch_counts())
             rec["bytes"].append(mesh.reduced_bytes - b0)
             if i == 0:
                 rec["loss"] = loss
@@ -4503,116 +3572,6 @@ def phase_scatter(torch):
           f"float64 sum")
 
 
-# The exact KNN's shapes: (label, batch, bins, height, width) of the
-# flow-training step (dsec.yaml) and of the traj-train step (Tab2L5).
-KNN_PATHS = (("flow", 14, 15, 480, 640), ("traj", 6, 41, 384, 512))
-KNN_K = 32
-KNN_OPS_PER_PAIR = 5               # csrc/knn_topk.cu: the kernel's bound
-# The databases phase 48 runs the kernel on, (name, knn_case's motion in px
-# per unit time, shuffled): the focus loss's order, the same points in a
-# random order (the scan's start near the queries' rows then helps no
-# more), and a flow ten times as large (up to ~100 px across the window).
-KNN_VARIANTS = (("ordered", 3.0, False), ("shuffled", 3.0, True),
-                ("wide", 30.0, False))
-# Distance entries per block of check_knn (~512 MB of f32).
-KNN_CHECK_BLOCK_ELEMS = 1 << 27
-
-
-def knn_case(seed, b, nb, h, w, every=16, motion=3.0, shuffle=False):
-    """(queries [Q, 2], database [b * nb, N, 2]) as f32 numpy arrays of a
-    focus loss's KNN: the LUT grid at superpixel 4, and trajectories of the
-    4 x 4 tiles moved as tests/test_torch_focus_loss.py::make_trajectories
-    moves them (grid offsets jittered by U(-0.3, 0.3), N(0, motion) px per
-    unit time) at the bin midtimes, with every `every`-th point copied onto
-    the next one (exact ties; 0: none) and, with `shuffle`, each
-    database's points in a random order."""
-    from motionpriorcmax_tpu_torch.losses import FocusLossConfig
-    from motionpriorcmax_tpu_torch.losses.focus import lut_grid_points
-
-    rng = np.random.default_rng(seed)
-    ys, xs = np.arange(2, h, 4), np.arange(2, w, 4)
-    off = np.stack(np.meshgrid(ys, xs, indexing="ij"), -1).reshape(-1, 2)
-    c = rng.normal(0, motion, (b, off.shape[0], 2))
-    off = off + rng.uniform(-0.3, 0.3, off.shape)
-    times = (np.arange(nb) + 0.5) / nb
-    db = (off[None, None] + times[None, :, None, None] * c[:, None]).astype(
-        np.float32).reshape(b * nb, -1, 2)
-    if every:
-        db[:, 1::every] = db[:, 0::every][:, :db[:, 1::every].shape[1]]
-    if shuffle:
-        order = np.argsort(rng.random(db.shape[:2]), axis=1)
-        db = np.take_along_axis(db, order[..., None], axis=1)
-    grid = lut_grid_points(FocusLossConfig(image_shape=(h, w), num_bins=nb))
-    return grid, np.ascontiguousarray(db)
-
-
-def check_knn(queries, database, k, norm, idx, dist):
-    """Hold (idx, dist) of K = min(k, N) nearest to `pairwise_dist`'s
-    values v (ops/cuda/knn_topk.py), computed blockwise on the tensors'
-    device; an AssertionError names the first breach.  Per query:
-      * the K values v[idx] are the K smallest of the row, in order, and
-        at equal values the indices ascend;
-      * where the K-th and (K+1)-th smallest values differ, the set equals
-        torch.topk's (the plain version's selection);
-      * where they are equal, the tied indices taken are the lowest ones;
-      * dist is bit for bit the plain version's: for l2 the refined
-        (q - p)^2 sum of the selected points, for l1 v itself.
-    Returns (rows with a tie at the K-th value, of them the rows where
-    torch.topk's set equals the lower-index one)."""
-    import torch
-
-    from motionpriorcmax_tpu_torch.device import no_tf32
-    from motionpriorcmax_tpu_torch.ops.cuda.knn_topk import pairwise_dist
-
-    g, n, _ = database.shape
-    nq = queries.shape[0]
-    k = min(k, n)
-    assert idx.shape == (g, nq, k) and dist.shape == (g, nq, k)
-    assert idx.dtype == torch.int64 and dist.dtype == torch.float32
-    block = max(1, min(nq, KNN_CHECK_BLOCK_ELEMS // (g * n)))
-    tie_rows = topk_lower = 0
-    for q0 in range(0, nq, block):
-        qb = queries[q0:q0 + block]
-        ib, db_ = idx[:, q0:q0 + block], dist[:, q0:q0 + block]
-        with no_tf32():
-            v = pairwise_dist(qb, database, norm)                # [G, Cq, N]
-        kv = torch.gather(v, 2, ib)
-        tv, ti = torch.topk(v, min(k + 1, n), dim=-1, largest=False,
-                            sorted=True)
-        assert torch.equal(kv, tv[..., :k]), "not the K smallest values"
-        same = kv[..., 1:] == kv[..., :-1]
-        assert bool((ib[..., 1:] > ib[..., :-1])[same].all()), \
-            "equal values out of index order"
-        if norm == "l2":
-            sel = torch.gather(database, 1, ib.reshape(g, -1, 1).expand(
-                -1, -1, 2)).reshape(g, -1, k, 2)
-            diffs = qb[None, :, None, :] - sel
-            want = torch.sum(diffs * diffs, dim=-1)
-        else:
-            want = kv
-        assert torch.equal(db_, want), "distances differ from plain's bits"
-        if k == n:
-            continue
-        tie = tv[..., k - 1] == tv[..., k]
-        sets_k = torch.sort(ib, dim=-1).values
-        sets_t = torch.sort(ti[..., :k], dim=-1).values
-        assert torch.equal(sets_k[~tie], sets_t[~tie]), \
-            "index sets differ without a tie at the K-th value"
-        if not bool(tie.any()):
-            continue
-        rows = tie.nonzero(as_tuple=True)
-        vv = v[rows]                                             # [R, N]
-        thr = tv[..., k - 1][rows]
-        mask = vv == thr[:, None]
-        need = (kv[rows] == thr[:, None]).sum(-1)
-        lowest = mask & (torch.cumsum(mask.int(), -1) <= need[:, None])
-        got = torch.zeros_like(mask).scatter_(1, ib[rows], True)
-        assert torch.equal(got & mask, lowest), "a tie not to the lower index"
-        tie_rows += len(thr)
-        topk_lower += int((sets_k[rows] == sets_t[rows]).all(-1).sum())
-    return tie_rows, topk_lower
-
-
 def phase_knn_topk(torch):
     """Phase 48: the exact KNN's fused kernel (ops/cuda/knn_topk.py) at the
     flow-training and traj-train shapes on each of KNN_VARIANTS' databases,
@@ -4645,8 +3604,8 @@ def phase_knn_topk(torch):
             if not (torch.equal(idx, i2) and torch.equal(dist, d2)):
                 fail(f"[knn] {label} {variant}: two calls gave other bits")
             del idx, dist, i2, d2
-            k_ms = time_ms(torch, lambda: kt.knn_topk(queries, db, KNN_K),
-                           flush, reps=10)
+            k_ms = timers(torch, lambda: kt.knn_topk(queries, db, KNN_K),
+                          flush, reps=10)[0]
             line = (f"[knn] {label} {variant} (N(0, {motion:g}) px per unit "
                     f"time{', shuffled' if shuffle else ''}): G={g} Q={q} "
                     f"N={n} K={KNN_K}: kernel {k_ms:.2f} ms; {ties} rows "
@@ -4659,9 +3618,9 @@ def phase_knn_topk(torch):
             else:
                 pairs = g * q * n
                 bound = pairs * KNN_OPS_PER_PAIR / (132 * 128 * clock) * 1e3
-                p_ms = time_ms(
+                p_ms = timers(
                     torch, lambda: kt.knn_topk_plain(queries, db, KNN_K),
-                    flush, reps=3, warmup=1)
+                    flush, reps=3, warmup=1)[0]
                 print(f"{line}; {pairs:.3e} pairs, bound {bound:.2f} ms "
                       f"({KNN_OPS_PER_PAIR} f32 operations per pair at "
                       f"{clock / 1e9:.2f} GHz), plain = knn_blocked before "
@@ -4673,82 +3632,6 @@ def phase_knn_topk(torch):
             del queries, db
             torch.cuda.empty_cache()
     return out
-
-
-# Phase 49's shapes, as (label, B, C, (H, W), dtype, ReLU fused, norms of
-# the path at that shape): the UNet's 18 at B=14, 480x640 (dsec.yaml) and
-# RAFT-Spline's 15 context-encoder norms at B=6, 384x512 (Tab2L5).
-FLAX_BN_SHAPES = (
-    ("unet-64", 14, 64, (480, 640), "bfloat16", True, 4),
-    ("unet-128", 14, 128, (240, 320), "bfloat16", True, 4),
-    ("unet-256", 14, 256, (120, 160), "bfloat16", True, 4),
-    ("unet-512", 14, 512, (60, 80), "bfloat16", True, 4),
-    ("unet-1024", 14, 1024, (30, 40), "bfloat16", True, 2),
-    ("raft-64", 6, 64, (192, 256), "float32", False, 5),
-    ("raft-96", 6, 96, (96, 128), "float32", False, 5),
-    ("raft-128", 6, 128, (48, 64), "float32", False, 5),
-)
-TOL_FLAX_BN_SUMS = 1e-5         # of the sum of |terms| per channel
-
-
-def flax_bn_inputs(torch, b, c, hw, dtype, seed):
-    """x and a cotangent [B, C, H, W] on the card, about half of each
-    channel below its mean, and the kernels' coefficients: [3, C] (mean,
-    mul, bias) and [5, C] (and gmean, k)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (b, c, *hw)
-    mean = torch.linspace(-1.0, 2.0, c, device="cuda")
-    x = (torch.randn(shape, generator=g, device="cuda") * 1.3
-         + mean[:, None, None])
-    dy = torch.randn(shape, generator=g, device="cuda")
-    mul = 1.0 + 0.2 * torch.randn(c, generator=g, device="cuda")
-    bias = 0.1 * torch.randn(c, generator=g, device="cuda")
-    gmean = 0.01 * torch.randn(c, generator=g, device="cuda")
-    k = 0.01 * torch.randn(c, generator=g, device="cuda")
-    return (x.to(dtype), dy.to(dtype), torch.stack([mean, mul, bias]),
-            torch.stack([mean, mul, bias, gmean, k]))
-
-
-def flax_bn_sums_scale(torch, x, dy=None, coef=None):
-    """[2, C] f64 sums of |terms| of flax_bn_reduce's two sums, the scale
-    of their rounding."""
-    xf = x.double()
-    if dy is None:
-        return torch.stack([xf.abs().sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
-    d = (xf - coef[0, :, None, None].double()).abs()
-    g = dy.double().abs()
-    return torch.stack([g.sum((0, 2, 3)), (g * d).sum((0, 2, 3))])
-
-
-def flax_bn_check(torch, x, dy, coef3, coef5, relu):
-    """Each launch against its plain version on the card: the elementwise
-    passes bit for bit, the sums to TOL_FLAX_BN_SUMS of their scale; every
-    launch's bits the same in a second call.  Returns the sums' worst
-    relative error."""
-    from motionpriorcmax_tpu_torch.ops.cuda import flax_batch_norm as fbn
-
-    for args in ((x, coef3, relu), (x, coef5, relu, dy)):
-        got, again = fbn.flax_bn_apply(*args), fbn.flax_bn_apply(*args)
-        if not torch.equal(got, again):
-            raise AssertionError("two apply calls gave other bits")
-        want = fbn.apply_plain(*args)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"apply differs from plain by "
-                f"{float((got.float() - want.float()).abs().max()):.3e}")
-    worst = 0.0
-    for args in ((x,), (x, dy, coef3, relu)):
-        got, again = fbn.flax_bn_reduce(*args), fbn.flax_bn_reduce(*args)
-        if not torch.equal(got, again):
-            raise AssertionError("two reduce calls gave other bits")
-        want = fbn.reduce_plain(*args).double()
-        scale = flax_bn_sums_scale(torch, *args[:3]).clamp_min(1.0)
-        err = float(((got.double() - want).abs() / scale).max())
-        if not err <= TOL_FLAX_BN_SUMS:
-            raise AssertionError(f"sums differ from plain by {err:.3e} of "
-                                 f"their scale")
-        worst = max(worst, err)
-    return worst
 
 
 def flax_bn_calls(torch, x, dy, coef3, coef5, relu):
@@ -4822,11 +3705,11 @@ def phase_flax_bn(torch):
         res = {"sums_rel_err": err}
         for name, fn in calls.items():
             fast = name in ("kernels", "norm")
-            res[f"{name}_ms"] = time_ms(torch, fn, flush,
-                                        reps=20 if fast else 5,
-                                        warmup=3 if fast else 1)
+            ms, card_ms, _ = timers(torch, fn, flush, reps=20 if fast else 5,
+                                    warmup=3 if fast else 1)
+            res[f"{name}_ms"] = ms
             if fast:
-                res[f"{name}_card_ms"] = time_ms(torch, fn, flush, card=True)
+                res[f"{name}_card_ms"] = card_ms
         bound, two_pass = flax_bn_bytes(x)
         res["bound_ms"] = bound / H100_BYTES_PER_S * 1e3
         res["two_pass_ms"] = two_pass / H100_BYTES_PER_S * 1e3
@@ -4955,7 +3838,6 @@ def main() -> int:
     ts = tuple(np.linspace(0, 1, 7)[1:].tolist())
     requests = [synthetic_request(torch, cfg, 1000 + i) for i in range(4)]
     launches = phase_serving(torch, model, requests, ts)
-    phase_breakdown(torch, model, requests[1], ts)
     del model, requests
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
@@ -4988,7 +3870,6 @@ def main() -> int:
     flow_launches, exact_ms = phase_flow_train(
         torch, fcfg, floss, train_batch, val_batch, smi_line, EXACT_STEP,
         EXACT_VAL)
-    phase_flow_breakdown(torch, fcfg, floss, train_batch)
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch)
     print(f"[done] flow-train phases {time.perf_counter() - t_flow:.1f} s")
@@ -5004,8 +3885,6 @@ def main() -> int:
         torch, scfg, sloss, train_batch, val_batch, smi_line, SOFTMAX_STEP,
         SOFTMAX_VAL, tag="softmax-train", want_losses=SOFTMAX_STEP_LOSSES,
         n_steps=len(SOFTMAX_STEP_LOSSES))
-    phase_flow_breakdown(torch, scfg, sloss, train_batch,
-                         tag="softmax-breakdown")
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch, {"knn_method": "softmax"}, True,
                            SOFTMAX_STEP, tag="softmax-card-vs-cpu")
@@ -5029,15 +3908,6 @@ def main() -> int:
     phase_traj_train(torch, TAB2L5_CONFIG, supervised, val_samples, smi_line,
                      TRAJ_SUPERVISED_STEP, "traj-train-supervised",
                      supervised=True)
-    torch.cuda.empty_cache()
-    phase_traj_breakdown(torch, TAB2L5_CONFIG, selfsup)
-    torch.cuda.empty_cache()
-    phase_traj_breakdown(torch, {**TAB2L5_CONFIG, "loss": {
-        **TAB2L5_CONFIG["loss"], "knn_method": "softmax"}}, selfsup,
-        tag="traj-breakdown-softmax")
-    torch.cuda.empty_cache()
-    phase_traj_breakdown(torch, TAB2L5_CONFIG, supervised,
-                         tag="traj-breakdown-supervised", supervised=True)
     del supervised
     torch.cuda.empty_cache()
     phase_traj_card_vs_cpu(torch)
@@ -5050,8 +3920,6 @@ def main() -> int:
     uns_launches, uns_ms = phase_unsorted_train(
         torch, scfg, sloss, unsorted_train, unsorted_val, smi_line, soft_ms)
     del unsorted_val
-    phase_flow_breakdown(torch, scfg, sloss, unsorted_train,
-                         tag="unsorted-breakdown")
     torch.cuda.empty_cache()
     phase_flow_card_vs_cpu(torch, {"knn_method": "softmax"}, True,
                            UNSORTED_STEP, tag="unsorted-card-vs-cpu",

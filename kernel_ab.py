@@ -13,10 +13,11 @@ them).
 Each run is a process of its own that imports `motionpriorcmax_tpu_torch`
 from its checkout (and builds that checkout's `corr_window.cu`,
 `voxel_vote.cu`, `iwe_vote.cu`, `lut_gather.cu`, `segment_sum.cu` and
-`softmax_interp.cu` there), makes the same inputs from a seed on the card,
-holds every kernel
-result against its plain version, and times, with the L2 flushed before
-each call, these sections:
+`softmax_interp.cu` there) and card_cases.py from this script's own
+directory (a copy of this script needs that module beside it), makes the
+same inputs from a seed on the card, holds every kernel result against its
+plain version, and times, with the L2 flushed before each call, these
+sections:
 
   lookup       one refinement iteration of the B=8 EVIMO2 traj-val path:
                `CorrPyramidLookup` over the four pyramid levels, f32, as
@@ -29,23 +30,23 @@ each call, these sections:
                in random order, "skewed": half the live events of each
                sample in one 16 x 64 region, 1% on one pixel;
   segsum       `lut_segsum_bwd` (kernel row 6, the LUT gather's sorted
-               backward) on chip_smoke.segsum_cases: "sorted" (phase 8's
+               backward) on card_cases.segsum_cases: "sorted" (phase 8's
                cell-sorted batch, the flow path's), "skewed" (its samples
                through skewed_events, sorted again by the loader's
                LUT-cell sort) and "traj" (the traj-train shape, 2^18
                padding rows per half); fails the run above TOL_SEGSUM or
                when two calls differ in a bit;
   segment_sum  `grid_segment_sum` (row 5, the any-order backward) on
-               chip_smoke.segment_sum_cases: "path" (phase 8's samples
+               card_cases.segment_sum_cases: "path" (phase 8's samples
                collated unsorted), "skewed" (in time order) and "traj";
                fails the run above TOL_SEGMENT_SUM;
-  iwe_vote     `iwe_vote_fwd` on one polarity half of chip_smoke.py's
-               phase 8 batch (B=14, M=2^19, 480 x 640, the loader's
-               LUT-cell sort), through `chip_smoke.vote_cases`: "sorted",
+  iwe_vote     `iwe_vote_fwd` on one polarity half of
+               card_cases.vote_batch (B=14, M=2^19, 480 x 640, the loader's
+               LUT-cell sort), through `card_cases.vote_cases`: "sorted",
                "unsorted" (random order), "skewed" (a hot pixel and a hot
                16 x 64 region, sorted again) and "wide" (the flow x 6, up
                to 48 px); its error is relative to max(1, max |plain|)
-               and fails the run above chip_smoke.py's TOL_VOTE_FWD,
+               and fails the run above card_cases.TOL_VOTE_FWD,
                and "band_share" is the share of live taps that the
                forward's plain twin votes through its shared-memory band
                (null for a checkout without the twin);
@@ -54,23 +55,23 @@ each call, these sections:
                and "unsorted_strided": the unsorted case with the
                cotangent passed as the path passes it, `select(1, 0)` of
                a [B, 2, H, W] tensor (a batch stride of 2 H W); fails
-               the run above chip_smoke.py's TOL_VOTE_BWD (relative to
+               the run above card_cases.TOL_VOTE_BWD (relative to
                max(1, max |plain|)) or when two calls differ in a bit;
                "digest" as in `softmax`, of d coords;
   softmax      `softmax_interp_fwd` and `softmax_interp_bwd` on
-               chip_smoke.softmax_cases: "flow" (the flow-train softmax
+               card_cases.softmax_cases: "flow" (the flow-train softmax
                step's G=210, Q=N=19,200, C=2, per-bin band, 1% far
                trajectories) and "traj" (the traj-train softmax step's
                G=246, Q=N=12,288, C=4, per-group dynamic band); each
                kernel against its plain version on three groups (fails
-               above chip_smoke.py's TOL_SOFTMAX, relative to max(1,
+               above card_cases.TOL_SOFTMAX, relative to max(1,
                max |plain|)), the backward twice (fails when the two
                calls differ in a bit), and "digest", the SHA-1 of the
                bytes of out, den and d vals with -0 made +0: equal digests
                in two runs mean equal values, bit for bit, up to the sign
                of a zero;
   knn          `ops/knn.py::knn_blocked` as the focus loss calls it
-               (K=32, l2) on chip_smoke.knn_case's databases: "flow_*"
+               (K=32, l2) on card_cases.knn_case's databases: "flow_*"
                (the flow-training step's G=210, Q=N=19,200) and "traj_*"
                (the traj-train step's G=246, Q=N=12,288), each in the
                loss's order ("_ordered"), shuffled ("_shuffled") and with
@@ -82,7 +83,7 @@ each call, these sections:
   flax_bn      one train-mode forward and backward of
                `models/norm.py::FlaxBatchNorm2d` as the checkout has it
                (the ReLU fused where it takes `relu`, else nn.ReLU after
-               it) at chip_smoke.py's FLAX_BN_SHAPES (each of the UNet's
+               it) at card_cases.FLAX_BN_SHAPES (each of the UNet's
                norm shapes at B=14, bf16, and of RAFT-Spline's context
                encoder at B=6, f32), and "unet_step", the sums over the
                UNet's 18 norms of one B=14 step; a checkout before the
@@ -91,15 +92,11 @@ each call, these sections:
 
 `--sections softmax,lookup` runs only those sections (default: all).
 
-Two timers, each the median of 20 calls (10 in `softmax`, 5 in `knn`)
-between two CUDA events:
-  ms       the events recorded around the call as `chip_smoke.py`'s `ms`
-           is: when the host takes longer to enqueue the call than the card
-           takes to flush, the host's launch overhead is in it;
-  card_ms  a spin of the card (torch.cuda._sleep) between the flush and the
-           start event covers the host's enqueue: the card's time alone.
-And host_us, the median wall time of the Python call itself, without a
-synchronize (what the host spends to enqueue it).
+Each call is timed by `card_cases.timers`, over 20 calls (10 in
+`softmax`, 5 in `knn`): ms (CUDA events around the call, the host's
+enqueue in it where that outlasts the L2 flush), card_ms (the card's time
+alone) and host_us (the Python call's wall time), the yardstick of
+chip_smoke.py's kernels line too.
 
 Prints one JSON line per run ({"run": label, "tree": path, ...}) and then a
 table of every run's numbers.
@@ -119,53 +116,21 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
-import time
 
 import functools
 
-from chip_smoke import (BATCH, FLAX_BN_SHAPES, H, HOST_COVER_CYCLES, KNN_K,
-                        KNN_PATHS, KNN_VARIANTS, LEVELS, Q, RADIUS,
-                        TOL_SEGMENT_SUM,
+from card_cases import (BATCH, FLAX_BN_SHAPES, H, KNN_K, KNN_PATHS,
+                        KNN_VARIANTS, LEVELS, Q, RADIUS, TOL_SEGMENT_SUM,
                         TOL_SEGSUM, TOL_SOFTMAX, TOL_VOTE_BWD, TOL_VOTE_FWD,
                         W, flax_bn_inputs, knn_case, level_inputs,
-                        nvidia_smi_line,
-                        segment_sum_cases, segsum_cases,
-                        softmax_cases,
-                        softmax_loss_cfgs, vote_band_share, vote_batch,
-                        vote_cases)
+                        nvidia_smi_line, segment_sum_cases, segsum_cases,
+                        softmax_cases, softmax_loss_cfgs, timers,
+                        vote_band_share, vote_batch, vote_cases)
 
 VOX_B, VOX_M, VOX_LIVE, VOX_NB, VOX_H, VOX_W = 14, 1 << 20, 1_000_000, 15, 480, 640
 CELL = 4
-REPS = 20
-
-
-def timers(torch, fn, flush, reps=REPS, warmup=3):
-    """(ms, card_ms, host_us) of fn, as the module docstring defines them."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for spin in (False, True):
-        times, host = [], []
-        for _ in range(reps):
-            flush.zero_()
-            if spin:
-                torch.cuda._sleep(HOST_COVER_CYCLES)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            fn()
-            host.append(time.perf_counter() - t0)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        out.append((statistics.median(times), statistics.median(host) * 1e6))
-    (ms, host_us), (card_ms, _) = out
-    return ms, card_ms, host_us
 
 
 def run_lookup(torch, flush):
@@ -420,7 +385,7 @@ def run_softmax(torch, flush):
 
 def run_knn(torch, flush):
     """ops/knn.py::knn_blocked as the focus loss calls it, at the flow and
-    traj-train shapes on chip_smoke.knn_case's databases."""
+    traj-train shapes on card_cases.knn_case's databases."""
     from motionpriorcmax_tpu_torch.ops import knn
 
     out = {}

@@ -349,19 +349,19 @@ def test_dsec_infer_from_own_training_and_extract_weights(tmp_path, tree):
 
 def test_infer_sequence_parts_seen_by_chip_smoke(tree, tmp_path):
     # The per-sequence function that chip_smoke.py drives on the card, with
-    # chip_smoke's part timers wrapped round the functions it looks up by
-    # name: every part in order, once per window, and the PNGs as without
-    # the timers.
-    import chip_smoke
+    # card_cases.py's part timers wrapped round the functions it looks up
+    # by name: every part in order, once per window, and the PNGs as
+    # without the timers.
+    import card_cases
 
     state = ttn.create_train_state(port_cfg(), "cpu")
     seq = DsecSequence(tree["root"] / "dsec/test" / SEQ, "test", NB,
                        timestamp_path=str(tree["csv"]))
     parts = []
-    with chip_smoke.infer_part_marks(state, seq, parts.append) as marked:
+    with card_cases.infer_part_marks(state, seq, parts.append) as marked:
         n = infer_sequence(state, port_cfg(), marked, tmp_path / "flow",
                            "mean_std", torch.device("cpu"))
-    assert n == 2 and parts == 2 * list(chip_smoke.INFER_PARTS)
+    assert n == 2 and parts == 2 * list(card_cases.INFER_PARTS)
     infer_sequence(state, port_cfg(), seq, tmp_path / "plain", "mean_std",
                    torch.device("cpu"))
     names = ["000042.png", "000044.png"]

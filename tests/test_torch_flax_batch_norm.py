@@ -30,7 +30,7 @@ import pytest
 import torch
 from torch import nn
 
-from chip_smoke import FLAX_BN_SHAPES, flax_bn_check, flax_bn_inputs
+from card_cases import FLAX_BN_SHAPES, flax_bn_check, flax_bn_inputs
 from motionpriorcmax_tpu_torch.models.norm import FlaxBatchNorm2d
 from motionpriorcmax_tpu_torch.ops.cuda import flax_batch_norm as fbn
 
@@ -281,7 +281,7 @@ def card_or_skip():
 @pytest.mark.parametrize("b,c,hw,dname", CARD_CASES)
 def test_kernels_match_plain_on_card(b, c, hw, dname):
     """Each launch against its plain twin on the same card inputs, with and
-    without the ReLU (chip_smoke.flax_bn_check): y and dx bit for bit, the
+    without the ReLU (card_cases.flax_bn_check): y and dx bit for bit, the
     sums to 1e-5 of the sums of |terms|; every launch's bits the same in a
     second call."""
     card_or_skip()

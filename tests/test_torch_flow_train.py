@@ -409,9 +409,9 @@ def test_flow_train_cli_defaults_to_cuda(tmp_path, monkeypatch):
 
 
 def test_chip_smoke_drives_dsec_yaml():
-    # chip_smoke.py carries config/flow_training/dsec.yaml as a dict (the
-    # GPU machine has no yaml): the two must agree.
-    import chip_smoke
+    # card_cases.py carries config/flow_training/dsec.yaml as a dict for
+    # chip_smoke.py (the GPU machine has no yaml): the two must agree.
+    import card_cases
 
     with open("config/flow_training/dsec.yaml") as fh:
-        assert chip_smoke.DSEC_CONFIG == yaml.safe_load(fh)
+        assert card_cases.DSEC_CONFIG == yaml.safe_load(fh)

@@ -3,13 +3,13 @@ csrc/knn_topk.cu) against the values its plain version ranks by.
 
 On the CPU: the wrapper's argument checks (tensors on the `meta` device take
 the kernel's path up to the launch, so its checks run here too), and
-`chip_smoke.check_knn`, the card's oracle (the card tests' and
+`card_cases.check_knn`, the card's oracle (the card tests' and
 chip_smoke.py's phase 48), on the kernel's rule written in PyTorch and on
 breaches of it.  On the card the `cuda` tests hold the kernel to
 `check_knn` at small shapes, K > N, a query count that is no multiple of
 the block's tile, l1, K above 64 (passes of 64), more groups than one
 launch takes, and the flow-training and traj-train shapes (G = 210,
-Q = N = 19,200; G = 246, Q = N = 12,288) on `chip_smoke.knn_case`'s
+Q = N = 19,200; G = 246, Q = N = 12,288) on `card_cases.knn_case`'s
 trajectories, made as tests/test_torch_focus_loss.py::make_trajectories
 makes them, each with exact duplicates planted among the points:
 
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_knn, knn_case
+from card_cases import check_knn, knn_case
 from motionpriorcmax_tpu_torch.device import no_tf32
 from motionpriorcmax_tpu_torch.ops import knn
 from motionpriorcmax_tpu_torch.ops.cuda import knn_topk as kt

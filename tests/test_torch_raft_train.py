@@ -372,15 +372,15 @@ def test_learned_curves_are_refused():
 
 
 def test_chip_smoke_drives_the_tab2l5_experiment():
-    # chip_smoke.py carries the composed Tab2L5 experiment config as a dict
-    # (the GPU machine has no yaml): the two must agree.
-    import chip_smoke
+    # card_cases.py carries the composed Tab2L5 experiment config as a dict
+    # for chip_smoke.py (the GPU machine has no yaml): the two must agree.
+    import card_cases
     from motionpriorcmax_tpu_torch.config import compose
 
     want = compose("config/trajectory_inference", "val",
                    ["experiment=raft-spline_evimo2-300ms_ours-selfsup",
                     "checkpoint=none", "dataset.path=none"])
-    assert chip_smoke.TAB2L5_CONFIG == want
+    assert card_cases.TAB2L5_CONFIG == want
     with open("config/trajectory_inference/experiment/"
               "raft-spline_evimo2-300ms_ours-selfsup.yaml") as fh:
         experiment = yaml.safe_load(fh)
@@ -393,7 +393,7 @@ def test_chip_smoke_drives_the_tab2l5_experiment():
                 yield path + (key,), val
 
     for path, val in leaves(experiment):       # every experiment leaf as is
-        node = chip_smoke.TAB2L5_CONFIG
+        node = card_cases.TAB2L5_CONFIG
         for key in path:
             node = node[key]
         assert node == val, path

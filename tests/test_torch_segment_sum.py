@@ -184,7 +184,7 @@ def test_kernel_hot_cell_on_card():
     """Half the events of each sample on one cell (same-address
     reductions), the rest spread; the hot cell's sum of ~35k terms differs
     from the plain version's by its summation order alone: 1e-4 of the
-    largest |value| (chip_smoke.py's TOL_SEGMENT_SUM_FEW)."""
+    largest |value| (card_cases.TOL_SEGMENT_SUM_FEW)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     grid, rows, cols, g = make_inputs(50, b=3, r=90, x=40, c=2, m=70001,
